@@ -1,0 +1,79 @@
+"""Carry solver state across from the JAX reference.
+
+The MWIS system has no weights; its counterpart is the solver state.  These
+functions turn the reference's NamedTuples (``UnionProblem``, ``Aux``,
+``Halo``, ``SegPlan``, ``RedState``), read field by field as numpy arrays,
+into the port's tensors on a chosen device — so a test can start both
+implementations from one mid-solve state.  Nothing here imports the
+reference: any object with the same field names will do.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import distributed as D
+from repro_torch.core import engine as E
+from repro_torch.core import exchange as X
+from repro_torch.core import rules as R
+
+
+def tensor(a, device: torch.device | str = "cpu") -> torch.Tensor:
+    """One array (numpy, or anything ``np.asarray`` reads) → tensor, same
+    dtype and shape."""
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _fields(cls, src, device):
+    return cls(**{f: tensor(getattr(src, f), device) for f in cls._fields})
+
+
+def aux(src, device: torch.device | str = "cpu") -> R.Aux:
+    return _fields(R.Aux, src, device)
+
+
+def red_state(src, device: torch.device | str = "cpu") -> R.RedState:
+    return _fields(R.RedState, src, device)
+
+
+def halo(src, device: torch.device | str = "cpu") -> X.Halo:
+    return _fields(X.Halo, src, device)
+
+
+def seg_plan(src, device: torch.device | str = "cpu") -> E.SegPlan:
+    """The reference carries the row-block height as the leading dimension
+    of a zero-size ``rblk_tpl`` array; the port keeps it as an int."""
+    def opt(a):
+        return None if a is None else tensor(a, device)
+
+    return E.SegPlan(
+        edge_perm=tensor(src.edge_perm, device),
+        lrow=tensor(src.lrow, device),
+        r_blk=int(np.shape(src.rblk_tpl)[0]),
+        wbits=opt(src.wbits), wnh=opt(src.wnh),
+    )
+
+
+def union_problem(src, device: torch.device | str = "cpu") -> D.UnionProblem:
+    return D.UnionProblem(
+        w0=tensor(src.w0, device),
+        is_local=tensor(src.is_local, device),
+        is_ghost=tensor(src.is_ghost, device),
+        aux=aux(src.aux, device),
+        halo=halo(src.halo, device),
+        p=int(src.p), V=int(src.V),
+        plan=None if src.plan is None else seg_plan(src.plan, device),
+    )
+
+
+def to_numpy(nt) -> dict:
+    """A NamedTuple of tensors (or arrays) → {field: numpy array}, for
+    comparing the two implementations field by field."""
+    out = {}
+    for f in nt._fields:
+        v = getattr(nt, f)
+        if torch.is_tensor(v):
+            v = v.cpu().numpy()
+        out[f] = v if isinstance(v, (int, type(None))) else np.asarray(v)
+    return out

@@ -1,0 +1,185 @@
+"""DisReduS / DisReduA — the paper's distributed reduction algorithms (§5).
+
+Port of the union half of :mod:`repro.core.distributed`.  Round structure
+(Algorithm 5.1):
+
+  while global reduction progress:
+      LocalReduce(G_i)            — §5.1, vectorized rule sweeps to fixpoint
+      ExchWeightUpdates + ExchStatusUpdates — one fused halo exchange
+
+DisReduA (§5.4) is bounded staleness: each PE exchanges after
+``stale_sweeps`` rule sweeps instead of waiting for its local fixpoint.
+All PEs run stacked into one block-diagonal graph on one device (the union
+path); the round loop is a host loop over a device change flag, with the
+reference ``lax.while_loop``'s trip count.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import engine as E
+from repro_torch.core import exchange as X
+from repro_torch.core import rules as R
+from repro_torch.core.local_reduce import local_reduce
+from repro_torch.core.partition import PartitionedGraph
+
+UNDECIDED, INCLUDED, EXCLUDED, FOLDED = 0, 1, 2, 3
+
+
+@dataclasses.dataclass(frozen=True)
+class DisReduConfig:
+    heavy_k: int = 8
+    use_heavy: bool = True
+    mode: str = "sync"            # "sync" = DisReduS | "async" = DisReduA
+    stale_sweeps: int = 2         # async: sweeps between exchanges
+    schedule: str = "cheap"       # named rule schedule (engine.SCHEDULES)
+    backend: str = "torch"        # aggregate backend: torch | blocked | cuda
+    max_rounds: int = 10_000
+    r_blk: Optional[int] = None   # blocked-ELL row-block height; None =
+                                  # autotune at plan-build time (engine)
+
+    @property
+    def sweeps_per_round(self) -> int:
+        return 1_000_000 if self.mode == "sync" else self.stale_sweeps
+
+
+class UnionProblem(NamedTuple):
+    w0: torch.Tensor
+    is_local: torch.Tensor
+    is_ghost: torch.Tensor
+    aux: R.Aux
+    halo: X.Halo
+    p: int
+    V: int  # per-PE vertex count (union total = p * V)
+    plan: Optional[E.SegPlan] = None  # blocked-ELL packing (non-torch backends)
+
+
+def build_union_problem(
+    pg: PartitionedGraph, backend: str = "torch",
+    r_blk: Optional[int] = None,
+    device: torch.device | str | None = None,
+) -> UnionProblem:
+    """Stack all PEs into one block-diagonal graph with offset indices, on
+    ``device`` (default CUDA)."""
+    dev = resolve_device(device)
+    p, V = pg.p, pg.V
+    off_v = (np.arange(p, dtype=np.int64) * V)[:, None]
+
+    def offset_idx(a: np.ndarray) -> np.ndarray:
+        # per-PE local indices -> union indices (nil_i = i*V + nil)
+        return (a.astype(np.int64)
+                + off_v.reshape((p,) + (1,) * (a.ndim - 1))).astype(np.int32)
+
+    def t(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    row = offset_idx(pg.row).reshape(-1)
+    col = offset_idx(pg.col).reshape(-1)
+    window = offset_idx(pg.window).reshape(p * V, -1)
+    edge_common = offset_idx(pg.edge_common).reshape(row.shape[0], -1)
+    win_adj_bits = pg.win_adj_bits.reshape(p * V, -1)
+    gid = pg.gid.reshape(-1)
+    aux = R.Aux(
+        row=t(row), col=t(col), gid=t(gid),
+        is_local=t(pg.is_local.reshape(-1)),
+        is_iface=t(pg.is_iface.reshape(-1)),
+        owner_rank=t(pg.owner_pe.reshape(-1)),
+        window=t(window),
+        win_complete=t(pg.win_complete.reshape(-1)),
+        win_adj_bits=t(win_adj_bits),
+        edge_common=t(edge_common),
+    )
+    plan = None if backend == "torch" else E.build_plan(
+        row, p * V, r_blk=r_blk, col=col, gid=gid, window=window,
+        win_adj_bits=win_adj_bits, device=dev,
+    )
+    return UnionProblem(
+        w0=t(pg.w0.reshape(-1)),
+        is_local=aux.is_local,
+        is_ghost=t(pg.is_ghost.reshape(-1)),
+        aux=aux, halo=X.make_halo(pg, dev), p=p, V=V, plan=plan,
+    )
+
+
+# --------------------------------------------------------------------- #
+# union path (single-device SPMD simulation)
+# --------------------------------------------------------------------- #
+def _round_union(state, prob: UnionProblem, cfg: DisReduConfig):
+    state = local_reduce(
+        state, prob.aux, heavy_k=cfg.heavy_k, use_heavy=cfg.use_heavy,
+        max_sweeps=cfg.sweeps_per_round, schedule=cfg.schedule,
+        backend=cfg.backend, plan=prob.plan,
+    )
+    state, _ = X.exchange_union(
+        state, prob.aux, prob.halo, backend=cfg.backend, plan=prob.plan,
+    )
+    return state
+
+
+def moved(state: R.RedState, snap_s: torch.Tensor,
+          snap_w: torch.Tensor) -> bool:
+    """Did a round change any status or weight?  (One device sync.)"""
+    return bool((state.status != snap_s).any() | (state.w != snap_w).any())
+
+
+def disredu_union(prob: UnionProblem,
+                  cfg: DisReduConfig) -> Tuple[R.RedState, int]:
+    """DisRedu rounds from the initial state until no round changes
+    anything (or ``cfg.max_rounds``); returns (state, rounds)."""
+    state = R.init_state(prob.w0, prob.is_local, prob.is_ghost)
+    rounds, changed = 0, True
+    while changed and rounds < cfg.max_rounds:
+        snap_s, snap_w = state.status, state.w
+        state = _round_union(state, prob, cfg)
+        changed = moved(state, snap_s, snap_w)
+        rounds += 1
+    return state, rounds
+
+
+def disredu(
+    pg: PartitionedGraph, cfg: DisReduConfig = DisReduConfig(),
+    device: torch.device | str | None = None,
+) -> Tuple[R.RedState, UnionProblem, int]:
+    """Run DisReduS/DisReduA on the union simulation path."""
+    prob = build_union_problem(pg, cfg.backend, cfg.r_blk, device)
+    state, rounds = disredu_union(prob, cfg)
+    return state, prob, rounds
+
+
+# --------------------------------------------------------------------- #
+# result extraction
+# --------------------------------------------------------------------- #
+def kernel_stats(
+    pg: PartitionedGraph, state: R.RedState
+) -> Tuple[int, int]:
+    """(#alive vertices, #alive undirected edges) of the reduced graph."""
+    status = state.status.cpu().numpy()
+    is_local = np.asarray(pg.is_local.reshape(-1))
+    alive_v = int(((status == UNDECIDED) & is_local).sum())
+    row = np.asarray(pg.row).astype(np.int64)
+    col = np.asarray(pg.col).astype(np.int64)
+    off = (np.arange(pg.p, dtype=np.int64) * pg.V)[:, None]
+    ur, uc = (row + off).reshape(-1), (col + off).reshape(-1)
+    ea = (status[ur] == UNDECIDED) & (status[uc] == UNDECIDED)
+    # count each undirected edge once: local rows only, and only (u < v) by gid
+    gids = np.asarray(pg.gid.reshape(-1))
+    cnt = int((ea & is_local[ur] & (gids[ur] < gids[uc])).sum())
+    return alive_v, cnt
+
+
+def members_global(
+    pg: PartitionedGraph, state: R.RedState, aux: R.Aux
+) -> np.ndarray:
+    """Reconstruct and assemble the global member mask (union layout)."""
+    in_set = R.reconstruct_members(state, aux).cpu().numpy()
+    members = np.zeros(pg.n_global, dtype=bool)
+    is_local = np.asarray(pg.is_local.reshape(-1))
+    gids = np.asarray(pg.gid.reshape(-1))
+    members[gids[in_set & is_local]] = True
+    return members

@@ -1,0 +1,101 @@
+"""Public segment-reduction API: host-side CSR→blocked-ELL packing and the
+device dispatch of the fused reduction (CPU → plain torch, CUDA → kernel)."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.segment_coo import kernel as K
+from repro_torch.kernels.segment_coo.ref import segment_fused_blocked_ref
+
+
+def pack_blocks(
+    row: np.ndarray, n_rows: int, *, r_blk: int = 8, e_blk_multiple: int = 1,
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Host packing: row-sorted edge ids → (edge_perm [n_blocks, E_BLK],
+    lrow [n_blocks, E_BLK]).  edge_perm indexes the original edge array;
+    padding slots point at edge 0 with lrow = r_blk (ignored) — so the edge
+    array must be non-empty (the partitioned graphs always pad E ≥ 1).
+    ``e_blk_multiple`` rounds the edge budget up (sublane alignment)."""
+    order = np.argsort(row, kind="stable")
+    rs = row[order]
+    n_blocks = (n_rows + r_blk - 1) // r_blk
+    blk_of_edge = rs // r_blk
+    counts = np.bincount(blk_of_edge, minlength=n_blocks)
+    e_blk = max(int(counts.max(initial=1)), 1)
+    e_blk = ((e_blk + e_blk_multiple - 1) // e_blk_multiple) * e_blk_multiple
+    edge_perm = np.zeros((n_blocks, e_blk), dtype=np.int64)
+    lrow = np.full((n_blocks, e_blk), r_blk, dtype=np.int32)
+    starts = np.zeros(n_blocks + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    for b in range(n_blocks):
+        sl = slice(starts[b], starts[b + 1])
+        k = starts[b + 1] - starts[b]
+        edge_perm[b, :k] = order[sl]
+        lrow[b, :k] = rs[sl] - b * r_blk
+    return edge_perm, lrow, e_blk
+
+
+def segment_fused_plain(
+    edge_perm: torch.Tensor, lrow: torch.Tensor, n_rows: int, *,
+    data_sum: torch.Tensor | None = None,
+    data_max: torch.Tensor | None = None,
+    data_min: torch.Tensor | None = None,
+    data_or: torch.Tensor | None = None,
+    or_nbits: int = 16, r_blk: int = 8,
+):
+    """Plain torch form of :func:`segment_fused_coo`: gather every payload
+    group into [n_blocks, E_BLK, D*] blocks, reduce per block, unblock."""
+    n_blocks, e_blk = edge_perm.shape
+    flat = edge_perm.reshape(-1).long()
+
+    def gather(data):
+        if data is None:
+            return None
+        return data[flat].reshape(n_blocks, e_blk, data.shape[-1])
+
+    outs = segment_fused_blocked_ref(
+        gather(data_sum), gather(data_max), gather(data_min), lrow,
+        data_or=gather(data_or), or_nbits=or_nbits, r_blk=r_blk,
+    )
+    return tuple(
+        o.reshape(n_blocks * r_blk, -1)[:n_rows] if o is not None else None
+        for o in outs
+    )
+
+
+def segment_fused_coo(
+    edge_perm: torch.Tensor,   # [n_blocks, E_BLK] from pack_blocks
+    lrow: torch.Tensor,        # [n_blocks, E_BLK]
+    n_rows: int,
+    *,
+    data_sum: torch.Tensor | None = None,   # [E, Ds] edge payloads to sum
+    data_max: torch.Tensor | None = None,   # [E, Dm] edge payloads to max
+    data_min: torch.Tensor | None = None,   # [E, Dn] edge payloads to min
+    data_or: torch.Tensor | None = None,    # [E, Do] payloads to bitwise-OR
+    or_nbits: int = 16,                     # bit width of the OR payloads
+    r_blk: int = 8,
+):
+    """Fused blocked segment sum+max+min+or over one packed edge list;
+    returns a (sum, max, min, or) tuple of [n_rows, D*] tensors (None where
+    the payload group is absent).
+
+    CUDA tensors launch the hand-written kernel (one pass, payloads gathered
+    inside it); CPU tensors take the plain torch version.  Anything else —
+    another device, or a mix — raises."""
+    groups = (data_sum, data_max, data_min, data_or)
+    if all(d is None for d in groups):
+        raise ValueError("segment_fused_coo needs at least one payload")
+    kinds = {t.device.type for t in (edge_perm, lrow, *groups)
+             if t is not None}
+    kw = dict(data_sum=data_sum, data_max=data_max, data_min=data_min,
+              data_or=data_or, or_nbits=or_nbits, r_blk=r_blk)
+    if kinds == {"cuda"}:
+        return K.segment_fused(edge_perm, lrow, n_rows, **kw)
+    if kinds == {"cpu"}:
+        return segment_fused_plain(edge_perm, lrow, n_rows, **kw)
+    raise ValueError(f"segment_fused_coo got tensors on {sorted(kinds)}; "
+                     "expected all on the CPU or all on CUDA")

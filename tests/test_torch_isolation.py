@@ -1,0 +1,71 @@
+"""The port stands alone: importing and running it loads neither JAX nor
+the reference package, an entry point without ``device=`` refuses to run
+when no GPU is visible, and CPU tensors never count as kernel launches."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+SCRIPT = textwrap.dedent("""
+    import sys
+
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import partition as part
+    from repro_torch.core import solvers as S
+    from repro_torch.graphs import generators as gen
+    from repro_torch.kernels.segment_coo import kernel as K
+    from repro_torch.launch import mwis_run
+
+    assert not torch.cuda.is_available()
+    g = gen.rgg2d(200, avg_deg=6, seed=0)
+    pg = part.partition_graph(g, 2, window_cap=8)
+    cfg = D.DisReduConfig(mode="async", schedule="cheap-fused",
+                          backend="cuda")
+    members, _ = S.solve(pg, "rnp", cfg, device="cpu")
+    assert g.is_independent_set(members)
+    assert K.launch_count() == 0, K.launch_count()
+
+    for call in (lambda: S.solve(pg, "rnp", cfg),
+                 lambda: D.disredu(pg, cfg),
+                 lambda: mwis_run.main(["--n", "50", "--p", "2"])):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise AssertionError("ran without a GPU and without device=cpu")
+
+    leaked = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                    or m == "repro" or m.startswith("repro."))
+    assert not leaked, leaked
+    print("ISOLATED")
+""")
+
+
+def test_port_imports_no_jax_and_needs_an_explicit_cpu():
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", SCRIPT], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED" in res.stdout
+
+
+def test_port_sources_never_import_the_reference():
+    """No module of the port names jax or the reference package in an
+    import statement (the subprocess test covers what actually loads)."""
+    bad = []
+    for path in (SRC / "repro_torch").rglob("*.py"):
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            s = line.strip()
+            if s.startswith(("import ", "from ")) and (
+                    s.split()[1].split(".")[0] in ("jax", "jaxlib", "repro")):
+                bad.append(f"{path.name}:{i}: {s}")
+    assert not bad, bad
