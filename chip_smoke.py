@@ -8,26 +8,48 @@ Phases, in order (any failure exits non-zero; no phase catches and
 continues):
 
   1. device  — the card as ``nvidia-smi`` names it, with its power limit;
-  2. build   — compile the CUDA kernel from the sources in this checkout;
+  2. build   — compile the four CUDA kernels from the sources in this
+               checkout, one ``nvcc`` each, all started together;
   3. kernel  — the fused segment-reduction kernel against its plain torch
                version at the test shapes (exact: all payloads are int32);
-  4. main path — ``repro_torch.launch.mwis_run`` on RGG n = 2^20, p = 4
+  4. ops at the micro shapes — ``segment_sum_coo``, ``common_neighbor_stats``
+               and ``embedding_bag`` on CUDA tensors (each launches its
+               kernel) at the reference's ``bench_kernel_micro`` shapes,
+               plus bfloat16 cases with many terms a row (40 on average)
+               and a bag (32), held against their plain versions;
+  5. main path — ``repro_torch.launch.mwis_run`` on RGG n = 2^20, p = 4
                (L ≈ 2^18, E ≈ 2^21 per PE), DisReduA, partitioned once:
                reduce/cheap-fused on the ``cuda`` backend, the same on the
                ``torch`` backend (must agree bit for bit), rg/edges-only on
                ``cuda``.  Kernel launch counts are reset before and read
-               after each run, and must be > 0 on the ``cuda`` runs;
-  5. kernel at full size — the kernel against its plain version on the
+               after each run: ``segment_fused`` must be > 0 on the
+               ``cuda`` runs, the three kernels off this path 0;
+  6. kernel at full size — the kernel against its plain version on the
                full-size plan with the run's real payload columns, timed
                with CUDA events beside its bound and a scatter_reduce
                yardstick;
-  6. replay  — the host time of the fold-log replay
+  7. wedge at full size — ``common_neighbor_stats`` on the reduce run's
+               union problem (windows, edges) with its initial and its
+               final state, exact against the plain version, timed;
+  8. replay  — the host time of the fold-log replay
                (``rules.reconstruct_members``) of the full-size runs;
-  7. rnp     — rnp/edges-only on ``cuda`` at ``--rnp-n`` (its host-driven
+  9. rnp     — rnp/edges-only on ``cuda`` at ``--rnp-n`` (its host-driven
                peel loop does not fit the time limit at full size);
-  8. oracle  — greedy on the card equals the sequential priority greedy;
-  9. profile — the full-size reduce run again under torch.profiler: device
-               time by kernel and the device's busy share of the wall time.
+ 10. oracle  — greedy on the card equals the sequential priority greedy;
+ 11. profile — the full-size reduce run again under torch.profiler: device
+               time by kernel and the device's busy share of the wall time;
+ 12. segment_sum at size — graphsage-reddit ``minibatch_lg``: the fanout
+               sampler's subgraph (1,024 seeds, fanouts 15 and 10: 169,984
+               rows, 168,960 edges into the first 16,384 rows), D = 602 and
+               128, float32 and bfloat16;
+ 13. embedding_bag at size — dlrm-mlperf's largest table (39,979,771 x 128)
+               at ``serve_bulk`` B = 262,144, K = 1 and 4, float32 and then
+               bfloat16.
+
+Phases 4, 7, 12 and 13 reset each op's launch count just before its calls
+and read it just after (it must be > 0), then time the kernel, its plain
+version and, where one exists, the single PyTorch call that computes the
+same function, beside the least time the card could take.
 
 Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 """
@@ -48,6 +70,24 @@ HBM_BYTES_PER_S = 3.35e12
 #: The data sheet's float32 rate outside the tensor cores; int32 ALU work
 #: runs at no more than this, so it gives a lower bound on the op time.
 CUDA_CORE_OPS_PER_S = 67e12
+
+#: graphsage-reddit ``minibatch_lg`` (src/repro/configs/base.py): 1,024
+#: seed nodes sampled at fanouts (15, 10) give 169,984 nodes and 168,960
+#: edges; payload widths are Reddit's 602 features (layer 1) and d_hidden
+#: 128 (layer 2); r_blk is the reference's default.
+SEGMENT_SUM_SIZE = dict(seeds=1024, fanouts=(15, 10), n_rows=169_984,
+                        n_edges=168_960, widths=(602, 128), r_blk=8)
+#: dlrm-mlperf's largest table (src/repro/models/dlrm.py) at ``serve_bulk``.
+EMBEDDING_BAG_SIZE = dict(V=39_979_771, D=128, B=262_144, bags=(1, 4))
+
+#: The TPU kernel each CUDA kernel replaces (the sources are the kernel
+#: modules' ``LIBS``).
+REPLACES = {
+    "segment_fused": "src/repro/kernels/segment_coo/kernel.py:159",
+    "segment_sum": "src/repro/kernels/segment_coo/kernel.py:62",
+    "wedge_intersect": "src/repro/kernels/wedge_intersect/kernel.py:43",
+    "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:44",
+}
 
 
 def phase(name: str, msg: str) -> None:
@@ -124,21 +164,254 @@ def kernel_at_test_shapes(dev) -> int:
     return err
 
 
+def launch_counts() -> dict:
+    from repro_torch import kernels
+
+    return {name: kernels.launch_count(name) for name in REPLACES}
+
+
+def run_op(kernel: str, call):
+    """One call of a public op on CUDA tensors, every launch count reset
+    just before and read just after; fails unless ``kernel`` launched.
+    Returns (result, launches)."""
+    import torch
+
+    from repro_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = call()
+    torch.cuda.synchronize()
+    n = launch_counts()[kernel]
+    if n <= 0:
+        fail(f"the op on CUDA tensors never launched {kernel}")
+    return out, n
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """Least time the card could take (ms) and what sets it: the bytes at
+    the HBM rate or the operations at the CUDA cores' rate."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by
+
+
+def timings(label: str, kernel, plain, library, reps: int, n_bytes: float,
+            n_ops: float) -> dict:
+    """CUDA-event times of the kernel, its plain version and (where there
+    is one) the single PyTorch call computing the same function, beside the
+    bound."""
+    out = dict(ms=cuda_ms(kernel, reps),
+               plain_ms=cuda_ms(plain, max(reps // 4, 2), warmup=1),
+               library_ms=None if library is None else cuda_ms(library, reps))
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops)
+    lib = ("none" if library is None
+           else f"{out['library_ms']:.5f}")
+    phase(label, f"kernel_ms={out['ms']:.5f} plain_ms={out['plain_ms']:.5f} "
+                 f"library_ms={lib} bound_ms={out['bound_ms']:.5f} "
+                 f"({out['bound_by']}: {int(n_bytes)} B, {int(n_ops)} ops) "
+                 f"bound/kernel={out['bound_ms'] / out['ms']:.4f}")
+    return out
+
+
+def check_segment_sum(got, data, perm, lrow, n_rows: int, r_blk: int,
+                      label: str) -> float:
+    """Kernel vs plain version (both sum in float32 and round once; the
+    plain version on the card adds by atomics in any order).  Tolerance:
+    float32, 1e-5 of the row's sum of |x| per column; bfloat16, one ulp of
+    the result (2^-7 relative) on top.  Returns the max abs error."""
+    import torch
+
+    from repro_torch.kernels.segment_coo.ops import segment_sum_plain
+
+    want = segment_sum_plain(data, perm, lrow, n_rows, r_blk=r_blk).float()
+    scale = segment_sum_plain(data.float().abs(), perm, lrow, n_rows,
+                              r_blk=r_blk)
+    tol, what = 1e-5 * scale, "1e-5 sum|x|"
+    if data.dtype == torch.bfloat16:
+        tol, what = tol + want.abs() * 2.0 ** -7, what + " + 2^-7 |want|"
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    phase(label, f"max_abs_err={err:.3e} (tolerance {what})")
+    if got.dtype != data.dtype or not bool((diff <= tol).all()):
+        fail(f"{label}: segment_sum kernel outside its tolerance ({err})")
+    return err
+
+
+def check_wedge(got, args, label: str) -> int:
+    """Kernel vs plain version: all int32, exact."""
+    from repro_torch.kernels.wedge_intersect.ref import (
+        common_neighbor_stats_ref,
+    )
+
+    err = max_abs_err(got, common_neighbor_stats_ref(*args))
+    phase(label, f"max_abs_err={err} (tolerance 0, int32)")
+    if err:
+        fail(f"{label}: wedge_intersect kernel != plain version ({err})")
+    return err
+
+
+def check_embedding_bag(got, table, idx, wgt, label: str) -> float:
+    """Kernel vs plain version (both sum in float32 and round once).
+    Tolerance: float32, the JAX test's 1e-5 (rtol = atol); bfloat16, one
+    ulp of the result (2^-7 relative) on top of 1e-5 of the bag's sum of
+    |w x| per column, which a kernel that added in bfloat16 would exceed
+    at many terms a bag.  Returns the max abs error."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    want = embedding_bag_ref(table, idx, wgt).float()
+    if table.dtype == torch.float32:
+        tol, what = 1e-5 + 1e-5 * want.abs(), "1e-5 rtol+atol"
+    else:
+        scale = embedding_bag_ref(table.float().abs(), idx, wgt.abs())
+        tol = 1e-5 * scale + want.abs() * 2.0 ** -7
+        what = "1e-5 sum|w x| + 2^-7 |want|"
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    phase(label, f"max_abs_err={err:.3e} (tolerance {what})")
+    if got.dtype != table.dtype or not bool((diff <= tol).all()):
+        fail(f"{label}: embedding_bag kernel outside its tolerance ({err})")
+    return err
+
+
+def ops_at_micro_shapes(dev, seed: int) -> dict:
+    """Phase 4: the three ops off the MWIS path on CUDA tensors at the
+    reference's ``bench_kernel_micro`` shapes, against their plain
+    versions; returns {kernel: {launches, max_abs_err}}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.segment_coo.ops import (
+        pack_blocks, segment_sum_coo,
+    )
+    from repro_torch.kernels.wedge_intersect.ops import common_neighbor_stats
+
+    rng = np.random.default_rng(seed)
+    rec = {}
+    n, e, d = 5000, 40000, 128
+    row = rng.integers(0, n, size=e).astype(np.int32)
+    perm, lrow, _ = pack_blocks(row, n, r_blk=8)
+    perm = torch.from_numpy(perm.astype(np.int32)).to(dev)
+    lrow = torch.from_numpy(lrow).to(dev)
+    data = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)).to(dev)
+    got, k = run_op("segment_sum", lambda: segment_sum_coo(
+        data, perm, lrow, n, r_blk=8))
+    err = check_segment_sum(got, data, perm, lrow, n, 8,
+                            f"micro segment_sum n_rows={n} E={e} D={d} f32")
+    rec["segment_sum"] = dict(launches=k, max_abs_err=err)
+    # many terms a row (40 on average) in bfloat16: a kernel that added in
+    # bfloat16 would fall outside the one-ulp tolerance
+    n = 1000
+    row = rng.integers(0, n, size=e).astype(np.int32)
+    perm, lrow, _ = pack_blocks(row, n, r_blk=8)
+    perm = torch.from_numpy(perm.astype(np.int32)).to(dev)
+    lrow = torch.from_numpy(lrow).to(dev)
+    data = data.to(torch.bfloat16)
+    got, k = run_op("segment_sum", lambda: segment_sum_coo(
+        data, perm, lrow, n, r_blk=8))
+    err = check_segment_sum(got, data, perm, lrow, n, 8,
+                            f"micro segment_sum n_rows={n} E={e} D={d} bf16")
+    rec["segment_sum"]["launches"] += k
+    rec["segment_sum"]["max_abs_err"] = max(err,
+                                            rec["segment_sum"]["max_abs_err"])
+
+    V, E, D = 1000, 20000, 16
+    args = tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, V, size=(V, D)).astype(np.int32),
+        rng.integers(0, 200, size=V).astype(np.int32),
+        rng.integers(0, 2, size=V).astype(bool),
+        rng.integers(0, V, size=E).astype(np.int32),
+        rng.integers(0, V, size=E).astype(np.int32)))
+    got, k = run_op("wedge_intersect", lambda: common_neighbor_stats(*args))
+    err = check_wedge(got, args, f"micro wedge_intersect V={V} E={E} D={D}")
+    rec["wedge_intersect"] = dict(launches=k, max_abs_err=err)
+
+    V, B, K_, D = 100_000, 8192, 4, 128
+    table, idx, wgt = (torch.from_numpy(a).to(dev) for a in (
+        rng.normal(size=(V, D)).astype(np.float32),
+        rng.integers(0, V, size=(B, K_)).astype(np.int32),
+        rng.normal(size=(B, K_)).astype(np.float32)))
+    got, k = run_op("embedding_bag", lambda: embedding_bag(table, idx, wgt))
+    err = check_embedding_bag(
+        got, table, idx, wgt,
+        f"micro embedding_bag V={V} B={B} K={K_} D={D} f32")
+    rec["embedding_bag"] = dict(launches=k, max_abs_err=err)
+    # 32 terms a bag in bfloat16 (see check_embedding_bag)
+    K_ = 32
+    table = table.to(torch.bfloat16)
+    idx, wgt = (torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, V, size=(B, K_)).astype(np.int32),
+        rng.normal(size=(B, K_)).astype(np.float32)))
+    got, k = run_op("embedding_bag", lambda: embedding_bag(table, idx, wgt))
+    err = check_embedding_bag(
+        got, table, idx, wgt,
+        f"micro embedding_bag V={V} B={B} K={K_} D={D} bf16")
+    rec["embedding_bag"]["launches"] += k
+    rec["embedding_bag"]["max_abs_err"] = max(
+        err, rec["embedding_bag"]["max_abs_err"])
+    return rec
+
+
+def wedge_at_full_size(res: dict, reps: int) -> dict:
+    """Phase 7: ``common_neighbor_stats`` on the full-size union problem
+    with the reduce run's initial and final state (active = UNDECIDED),
+    exact against the plain version; returns {launches, max_abs_err} and
+    the timings on the initial state."""
+    from repro_torch.core import rules as R
+    from repro_torch.kernels.wedge_intersect import kernel as WK
+    from repro_torch.kernels.wedge_intersect.ops import common_neighbor_stats
+    from repro_torch.kernels.wedge_intersect.ref import (
+        common_neighbor_stats_ref,
+    )
+
+    prob, aux = res["prob"], res["prob"].aux
+    init = R.init_state(prob.w0, prob.is_local, prob.is_ghost)
+    n_edges = aux.row.shape[0]
+    n_vertices, d = aux.window.shape
+    out = dict(launches=0, max_abs_err=0)
+    for label, st in (("initial", init), ("final", res["state"])):
+        active = st.status == R.UNDECIDED
+        args = (aux.window, st.w, active, aux.row, aux.col)
+        got, k = run_op("wedge_intersect",
+                        lambda: common_neighbor_stats(*args))
+        out["launches"] += k
+        tag = f"wedge-full {label} state"
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 check_wedge(got, args, tag))
+        phase(tag, f"E={n_edges} V={n_vertices} D={d} "
+                   f"active={int(active.sum())} "
+                   f"sum_K={int(got[1].long().sum())}")
+        # least bytes: row, col and both outputs per edge; window,
+        # weights and activity per vertex; ops: the D x D compare per edge
+        t = timings(tag, lambda: WK.wedge_intersect(*args),
+                    lambda: common_neighbor_stats_ref(*args), None, reps,
+                    16 * n_edges + n_vertices * (4 * d + 5),
+                    n_edges * d * d)
+        if label == "initial":
+            out.update(t)
+    return out
+
+
 def drive(args, g, pg, label: str, need_launches: bool, **over) -> dict:
     """One main-path run through ``mwis_run.run``, launch counts reset just
     before and read just after."""
     import torch
 
-    from repro_torch.kernels.segment_coo import kernel as K
+    from repro_torch import kernels
     from repro_torch.launch import mwis_run
 
     a = argparse.Namespace(**{**vars(args), **over})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_count()
+    kernels.reset_launch_counts()
     res = mwis_run.run(a, g, pg)
     torch.cuda.synchronize()
-    res["launches"] = K.launch_count()
+    counts = launch_counts()
+    res["launches"] = counts.pop("segment_fused")
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     phase("main", f"{label}: {a.algo}/{a.schedule}/{a.backend} "
                   f"rounds={res['rounds']} seconds={res['seconds']:.3f} "
@@ -147,11 +420,14 @@ def drive(args, g, pg, label: str, need_launches: bool, **over) -> dict:
                   f"weight={res.get('weight')} "
                   f"members={int(res['members'].sum())} "
                   f"kernel_launches={res['launches']} "
+                  f"off_path_kernel_launches={sum(counts.values())} "
                   f"peak_device_gb={res['peak_gb']:.2f}")
     if need_launches and res["launches"] <= 0:
         fail(f"{label}: the cuda backend never launched the kernel")
     if not need_launches and res["launches"] != 0:
         fail(f"{label}: the kernel launched on a non-cuda backend")
+    if any(counts.values()):
+        fail(f"{label}: a kernel off the MWIS path launched: {counts}")
     if not g.is_independent_set(res["members"]):
         fail(f"{label}: the member set is not independent")
     return res
@@ -228,12 +504,9 @@ def kernel_at_full_size(res: dict, reps: int) -> dict:
     # edge's payload row once, the [n_rows, cols] outputs once
     n_bytes = 4 * (n_blocks * e_blk + live + n_edges * cols + n_rows * cols)
     n_ops = live * cols
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / CUDA_CORE_OPS_PER_S * 1e3
     out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                max_abs_err=err)
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops)
     real = int((aux.gid[aux.row.long()] >= 0).sum())
     row_np = aux.row.cpu().numpy()
     for r in E.R_BLK_CANDIDATES:  # the packing census autotune chose from
@@ -304,6 +577,153 @@ def profile_reduce(args, g, pg) -> None:
                          f"x{e.count:<6d} {e.key[:90]}")
 
 
+def sampled_targets(seeds: int, fanouts: tuple[int, ...]) -> np.ndarray:
+    """The target row of every edge of a fanout-sampled subgraph, in the
+    layout of the reference's sampler (src/repro/graphs/sampler.py): seeds
+    are rows 0..seeds-1, each hop's new nodes follow in order, and each
+    node of a frontier takes ``f`` in-edges from the next hop.  No sampled
+    neighbour repeats, which is what the padded shapes of ``minibatch_lg``
+    hold room for."""
+    import numpy as np
+
+    targets, first, frontier = [], 0, seeds
+    for f in fanouts:
+        targets.append(np.repeat(np.arange(first, first + frontier,
+                                           dtype=np.int32), f))
+        first, frontier = first + frontier, frontier * f
+    return np.concatenate(targets)
+
+
+def segment_sum_at_size(dev, seed: int, reps: int) -> dict:
+    """Phase 12: ``segment_sum_coo`` at graphsage-reddit ``minibatch_lg``
+    (src/repro/configs/base.py): GraphSAGE's neighbour sum over the sampled
+    subgraph of 1,024 seeds at fanouts (15, 10) — 169,984 rows, 168,960
+    edges, each summed into its target (rows 0..1,023 take 15 each, rows
+    1,024..16,383 take 10, the 153,600 nodes of the last hop none) — at
+    r_blk 8, the reference's default.  The edge payloads (the source
+    features the model gathers before the sum) are drawn from the seed.
+    D = 602 (Reddit features, layer 1) and 128 (d_hidden, layer 2), float32
+    and bfloat16; returns {launches, max_abs_err} and the timings of
+    D = 602 float32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.segment_coo import kernel as K
+    from repro_torch.kernels.segment_coo.ops import (
+        pack_blocks, segment_sum_coo, segment_sum_plain,
+    )
+
+    n_rows, n_edges, r_blk = (SEGMENT_SUM_SIZE[k]
+                              for k in ("n_rows", "n_edges", "r_blk"))
+    row = sampled_targets(SEGMENT_SUM_SIZE["seeds"],
+                          SEGMENT_SUM_SIZE["fanouts"])
+    if row.shape[0] != n_edges or SEGMENT_SUM_SIZE["seeds"] + row.shape[0] \
+            != n_rows:
+        fail(f"the sampled layout ({row.shape[0]} edges) is not "
+             f"minibatch_lg's ({n_edges} edges, {n_rows} nodes)")
+    perm, lrow, e_blk = pack_blocks(row, n_rows, r_blk=r_blk)
+    n_blocks = perm.shape[0]
+    perm = torch.from_numpy(perm.astype(np.int32)).to(dev)
+    lrow = torch.from_numpy(lrow).to(dev)
+    row_t = torch.from_numpy(row).to(dev).long()
+    phase("segment_sum-size", f"n_rows={n_rows} E={n_edges} r_blk={r_blk} "
+                              f"n_blocks={n_blocks} E_BLK={e_blk} "
+                              f"slots/edges={n_blocks * e_blk / n_edges:.3f} "
+                              f"empty_blocks="
+                              f"{int((lrow == r_blk).all(1).sum())}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = dict(launches=0, max_abs_err=0.0)
+    for d in SEGMENT_SUM_SIZE["widths"]:
+        x32 = torch.randn((n_edges, d), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            data = x32.to(dtype)
+            tag = f"segment_sum-size D={d} {str(dtype)[6:]}"
+            got, k = run_op("segment_sum", lambda: segment_sum_coo(
+                data, perm, lrow, n_rows, r_blk=r_blk))
+            out["launches"] += k
+            out["max_abs_err"] = max(out["max_abs_err"], check_segment_sum(
+                got, data, perm, lrow, n_rows, r_blk, tag))
+
+            def library():  # yardstick only: the port never calls it
+                return torch.zeros((n_rows, d), dtype=dtype,
+                                   device=dev).index_add_(0, row_t, data)
+
+            lib_err = float((library().float() - got.float()).abs().max())
+            phase(tag, f"index_add_ yardstick vs kernel max_abs_err="
+                       f"{lib_err:.3e} (not a check: it adds in the data "
+                       f"type by atomics)")
+            es = data.element_size()
+            # least bytes: lrow over every slot, edge_perm and the payload
+            # row of each edge (all live), the [n_rows, d] output
+            t = timings(tag, lambda: K.segment_sum(data, perm, lrow, n_rows,
+                                                   r_blk=r_blk),
+                        lambda: segment_sum_plain(data, perm, lrow, n_rows,
+                                                  r_blk=r_blk),
+                        library, reps,
+                        4 * n_blocks * e_blk + 4 * n_edges
+                        + es * d * (n_edges + n_rows),
+                        n_edges * d)
+            if d == SEGMENT_SUM_SIZE["widths"][0] and dtype == torch.float32:
+                out.update(t)
+        del x32, data
+    torch.cuda.synchronize()
+    return out
+
+
+def embedding_bag_at_size(dev, seed: int, reps: int) -> dict:
+    """Phase 13: ``embedding_bag`` on dlrm-mlperf's largest table
+    (src/repro/models/dlrm.py: V = 39,979,771, D = 128) at ``serve_bulk``
+    (B = 262,144), K = 1 (the model's single-hot lookup) and 4, uniform
+    indices from the seed; float32 (20.5 GB), then bfloat16 once the
+    float32 table is freed.  Returns {launches, max_abs_err} and the
+    timings of float32, K = 1."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import kernel as EK
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    V, D, B = (EMBEDDING_BAG_SIZE[k] for k in "VDB")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = dict(launches=0, max_abs_err=0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.randn((V, D), generator=gen, device=dev, dtype=dtype)
+        for k_bag in EMBEDDING_BAG_SIZE["bags"]:
+            idx = torch.randint(0, V, (B, k_bag), generator=gen, device=dev,
+                                dtype=torch.int32)
+            wgt = torch.randn((B, k_bag), generator=gen, device=dev)
+            tag = f"embedding_bag-size K={k_bag} {str(dtype)[6:]}"
+            got, k = run_op("embedding_bag",
+                            lambda: embedding_bag(table, idx, wgt))
+            out["launches"] += k
+            out["max_abs_err"] = max(out["max_abs_err"], check_embedding_bag(
+                got, table, idx, wgt, tag))
+            idx_l, wgt_t = idx.long(), wgt.to(dtype)
+
+            def library():  # yardstick only: the port never calls it
+                return torch.nn.functional.embedding_bag(
+                    idx_l, table, mode="sum", per_sample_weights=wgt_t)
+
+            lib_err = float((library().float() - got.float()).abs().max())
+            phase(tag, f"F.embedding_bag yardstick vs kernel max_abs_err="
+                       f"{lib_err:.3e} (not a check: its weights are in the "
+                       f"table's type)")
+            es = table.element_size()
+            # least bytes: one table row, one index and one weight per
+            # lookup, one output row per bag; ops: multiply and add
+            t = timings(tag, lambda: EK.embedding_bag(table, idx, wgt),
+                        lambda: embedding_bag_ref(table, idx, wgt),
+                        library, reps,
+                        B * k_bag * (D * es + 8) + B * D * es,
+                        2 * B * k_bag * D)
+            if (dtype == torch.float32
+                    and k_bag == EMBEDDING_BAG_SIZE["bags"][0]):
+                out.update(t)
+        del table
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1 << 20,
@@ -335,16 +755,24 @@ def main() -> None:
                     f"count={torch.cuda.device_count()} torch={torch.__version__}"
                     f" cuda={torch.version.cuda} python={sys.version.split()[0]}")
 
+    from repro_torch import kernels
+    from repro_torch.kernels.embedding_bag import kernel as EK
     from repro_torch.kernels.segment_coo import kernel as K
+    from repro_torch.kernels.wedge_intersect import kernel as WK
     from repro_torch.launch import mwis_run
 
+    libs = {**K.LIBS, **WK.LIBS, **EK.LIBS}
+    if set(libs) != set(REPLACES):
+        fail(f"kernels {sorted(libs)} != the four of REPLACES")
     t0 = time.time()
-    K.build()
-    phase("build", f"segment_fused built and loaded in {time.time() - t0:.2f}s")
+    kernels.build_many(list(libs.values()))
+    phase("build", f"{', '.join(libs)} built (in parallel) "
+                   f"in {time.time() - t0:.2f}s")
 
     err = kernel_at_test_shapes(dev)
     if err:
         fail(f"kernel != plain version at the test shapes ({err})")
+    rec = ops_at_micro_shapes(dev, opts.seed)
 
     base = mwis_run.build_parser().parse_args([
         "--family", "rgg", "--n", str(opts.n), "--p", str(opts.p),
@@ -366,6 +794,7 @@ def main() -> None:
     del ref
     rg = drive(base, g, pg, "full", True, algo="rg", schedule="edges-only")
     kfull = kernel_at_full_size(red, opts.reps)
+    wfull = wedge_at_full_size(red, opts.reps)
     replay_seconds(red, "reduce/cheap-fused")
     replay_seconds(rg, "rg/edges-only")
     launches = red["launches"] + rg["launches"]
@@ -391,18 +820,28 @@ def main() -> None:
         fail("greedy on the card != sequential priority greedy")
     phase("oracle", f"greedy weight {gr['weight']} == sequential {w_seq}")
     profile_reduce(base, g, pg)
+    torch.cuda.empty_cache()
+    sfull = segment_sum_at_size(dev, opts.seed, opts.reps)
+    efull = embedding_bag_at_size(dev, opts.seed, opts.reps)
 
-    kernels = [dict(
-        name="segment_fused", route="cuda",
-        source="src/repro_torch/kernels/segment_coo/csrc/segment_fused.cu",
-        replaces="src/repro/kernels/segment_coo/kernel.py:159",
-        launches=launches, max_abs_err=max(err, kfull["max_abs_err"]),
-        ms=kfull["ms"], plain_ms=kfull["plain_ms"],
-        bound_ms=kfull["bound_ms"], bound_by=kfull["bound_by"],
-        library_ms=kfull["library_ms"],
-    )]
+    kfull.update(launches=launches,
+                 max_abs_err=max(err, kfull["max_abs_err"]))
+    for name, full in (("segment_sum", sfull), ("wedge_intersect", wfull),
+                       ("embedding_bag", efull)):
+        full["launches"] += rec[name]["launches"]
+        full["max_abs_err"] = max(full["max_abs_err"],
+                                  rec[name]["max_abs_err"])
+    found = dict(segment_fused=kfull, segment_sum=sfull,
+                 wedge_intersect=wfull, embedding_bag=efull)
+    rows = [dict(
+        name=name, route="cuda",
+        source=str(sources[0].relative_to(ROOT)), replaces=REPLACES[name],
+        **{key: found[name][key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+    ) for name, (_, sources) in libs.items()]
     phase("done", f"total {time.time() - t_start:.1f}s")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,13 @@
 """repro_torch: the PyTorch/CUDA port of the distributed MWIS reductions.
 
 A second package beside the JAX reference ``repro``: the same modules under
-the same names, written over torch tensors, with the reference's one TPU
-kernel on the main path (the fused blocked segment reduction) replaced by a
-hand-written CUDA kernel for Hopper (``kernels/segment_coo``).
+the same names, written over torch tensors, with each of the reference's
+four TPU kernels replaced by a hand-written CUDA kernel for Hopper — the
+fused int32 segment reduction on the solver's main path
+(``kernels/segment_coo``), and behind their public ops the float segment
+sum (``kernels/segment_coo``), the per-edge window intersection
+(``kernels/wedge_intersect``) and the sum-mode EmbeddingBag
+(``kernels/embedding_bag``).
 
 Entry points take ``device=`` and default to ``"cuda"``.  Without a visible
 GPU they raise instead of running on the CPU; the tests pass

@@ -3,7 +3,8 @@
 Each kernel ships as
 
   <name>/csrc/*.cu - CUDA C++ for sm_90a with a plain C interface,
-  <name>/kernel.py - the ctypes wrapper: checks, launch, launch counter,
+  <name>/kernel.py - the ctypes wrapper: checks, launch, and ``LIBS``
+                     (each kernel's library name and sources),
   <name>/ref.py    - the plain torch version (CPU tests; held against the
                      kernel on the card),
   <name>/ops.py    - the public op: CPU tensors take the plain version,
@@ -12,10 +13,13 @@ Each kernel ships as
 Kernels are compiled at first use with ``nvcc`` into ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``) and loaded with
 ``ctypes``.  Nothing is compiled or loaded when a module is imported.
+Every launch goes through :func:`launch`, which counts it by kernel name
+(:func:`launch_count`, :func:`reset_launch_counts`).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -24,6 +28,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 #: Where built shared libraries go (inside the checkout, git-ignored).
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -31,6 +37,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+#: Launches of each kernel in this process, by kernel name.
+_launches: collections.Counter[str] = collections.Counter()
 
 
 def nvcc_path() -> str:
@@ -51,28 +60,92 @@ def library_path(name: str, sources: tuple[Path, ...]) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str, sources: tuple[Path, ...]) -> Path:
-    """Compile ``sources`` into one shared library unless already built.
+def build_many(libs: list[tuple[str, tuple[Path, ...]]]) -> list[Path]:
+    """Compile every library of ``libs`` that is not built yet, one ``nvcc``
+    process each, all started together; returns the libraries' paths.
 
-    The library is written under a temporary name and renamed into place, so
-    processes that build concurrently never load a half-written file.
+    Each library is written under a temporary name and renamed into place,
+    so processes that build concurrently never load a half-written file.
     """
-    out = library_path(name, sources)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {name} ({res.returncode}):\n{res.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
+    outs = [library_path(name, sources) for name, sources in libs]
+    procs = []
+    for (name, sources), out in zip(libs, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )))
+    failed = []
+    for name, out, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} ({proc.returncode}):\n"
+                          f"{err}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str, sources: tuple[Path, ...]) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library, once per process."""
-    return ctypes.CDLL(str(build(name, sources)))
+    return ctypes.CDLL(str(build_many([(name, sources)])[0]))
+
+
+def check(name: str, t: torch.Tensor, device: torch.device, ndim: int,
+          dtypes: tuple[torch.dtype, ...] = (torch.int32,)) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-D tensor of one of
+    ``dtypes`` on ``device`` — what a kernel's C interface takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        want = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name} must be {want}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def require_cuda(kernel: str, device: torch.device) -> None:
+    """Raise unless ``device`` is a CUDA device: a kernel wrapper calls it
+    after checking its arguments, so those checks also run on the CPU."""
+    if device.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors, got {device}")
+
+
+def device_kind(op: str, *tensors: torch.Tensor | None) -> str:
+    """Where a public op runs: ``"cuda"`` (launch the kernel) or ``"cpu"``
+    (take the plain version) when every tensor given lies there; raises on
+    another device or a mix.  ``None`` entries (absent payloads) are
+    skipped."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds in ({"cuda"}, {"cpu"}):
+        return kinds.pop()
+    raise ValueError(f"{op} got tensors on {sorted(kinds)}; "
+                     "expected all on the CPU or all on CUDA")
+
+
+def launch(kernel: str, fn, device: torch.device, *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` on ``device``'s current
+    stream (no synchronisation); raise if it returns a CUDA error, else
+    count one launch of ``kernel``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    _launches[kernel] += 1
+
+
+def launch_count(kernel: str) -> int:
+    """Launches of ``kernel`` in this process since the last reset."""
+    return _launches[kernel]
+
+
+def reset_launch_counts() -> None:
+    _launches.clear()

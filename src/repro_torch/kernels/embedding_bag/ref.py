@@ -1,0 +1,20 @@
+"""Plain torch version of the sum-mode EmbeddingBag.
+
+A copy of ``repro/kernels/embedding_bag/ref.py`` over torch tensors: gather,
+weight, sum over the bag in float32, round to the table's type once.  It is
+the plain version of the hand-written CUDA kernel in
+:mod:`repro_torch.kernels.embedding_bag.kernel`: the CPU path, and what the
+kernel is held against on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
+                      wgt: torch.Tensor) -> torch.Tensor:
+    """out[b] = Σ_k wgt[b, k] · table[idx[b, k]]: [V, D], [B, K], [B, K] →
+    [B, D] in the table's type."""
+    rows = table[idx.long()]                 # [B, K, D]
+    return (rows.float() * wgt[..., None].float()).sum(1).to(table.dtype)

@@ -1,12 +1,15 @@
-"""ctypes wrapper of the fused blocked segment-reduction CUDA kernel.
+"""ctypes wrappers of the blocked segment-reduction CUDA kernels.
 
 ``segment_fused`` is the Hopper counterpart of
-``repro/kernels/segment_coo/kernel.py:segment_fused_blocked``
-(``csrc/segment_fused.cu`` says how it is laid out and what bounds it).
-It takes the *unblocked* ``[E, D*]`` payloads and gathers them through
-``edge_perm`` inside the kernel.  CUDA int32 tensors only: anything else
-raises, there is no fallback.  The plain version is
-:func:`repro_torch.kernels.segment_coo.ref.segment_fused_blocked_ref`.
+``repro/kernels/segment_coo/kernel.py:segment_fused_blocked`` (int32
+sum / max / min / OR, ``csrc/segment_fused.cu``), ``segment_sum`` that of
+``segment_sum_blocked`` (float32 / bfloat16 sums, ``csrc/segment_sum.cu``);
+each source says how it is laid out and what bounds it.  Both take the
+*unblocked* ``[E, D]`` payloads and gather them through ``edge_perm``
+inside the kernel.  CUDA tensors of the listed types only: anything else
+raises, there is no fallback.  The plain versions are
+:func:`repro_torch.kernels.segment_coo.ref.segment_fused_blocked_ref` and
+:func:`~repro_torch.kernels.segment_coo.ref.segment_sum_blocked_ref`.
 """
 
 from __future__ import annotations
@@ -17,49 +20,54 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import load
+from repro_torch.kernels import check, launch, load, require_cuda
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "segment_fused.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+#: Each kernel's (library name, sources), for ``kernels.build_many``.
+LIBS = {
+    "segment_fused": ("segment_fused", (_CSRC / "segment_fused.cu",)),
+    "segment_sum": ("segment_sum", (_CSRC / "segment_sum.cu",)),
+}
+_ARGTYPES = {
+    "segment_fused": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+    "segment_sum": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+}
 
-#: Launches of the kernel in this process (see :func:`launch_count`).
-_launches = 0
-
-#: Dynamic shared memory a block may take without opting in (bytes).
+#: Dynamic shared memory a segment_fused block takes without opting in.
 _SMEM_LIMIT = 48 * 1024
-
-
-def launch_count() -> int:
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+#: Payload columns per segment_sum thread block (``kCols`` in the source),
+#: and the shared memory its blocks may opt into (Hopper: 227 KB a block,
+#: less the kernel's 1 KB of static shared memory).
+_SUM_COLS = 128
+_SUM_SMEM_LIMIT = 232_448 - 1024
+#: segment_sum's payload types and their code in the C interface.
+_SUM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = load("segment_fused", SOURCES).segment_fused_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
-        + [ctypes.c_void_p]
+def _launcher(name: str):
+    fn = getattr(load(*LIBS[name]), f"{name}_launch")
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def build() -> None:
-    """Compile and load the kernel library (first use does it anyway)."""
-    _launcher()
-
-
-def _check(name: str, t: torch.Tensor, device: torch.device, ndim: int):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _check_plan(edge_perm, lrow, n_rows: int, r_blk: int) -> torch.device:
+    device = edge_perm.device
+    check("edge_perm", edge_perm, device, 2)
+    check("lrow", lrow, device, 2)
+    if lrow.shape != edge_perm.shape:
+        raise ValueError(
+            f"lrow {tuple(lrow.shape)} != edge_perm {tuple(edge_perm.shape)}"
+        )
+    n_blocks = edge_perm.shape[0]
+    if not 0 < n_rows <= n_blocks * r_blk:
+        raise ValueError(
+            f"n_rows={n_rows} outside (0, n_blocks*r_blk={n_blocks * r_blk}]"
+        )
+    return device
 
 
 def segment_fused(
@@ -77,32 +85,19 @@ def segment_fused(
     """Launch the kernel on the current stream; returns a (sum, max, min,
     or) tuple of [n_rows, D*] int32 tensors (None for absent groups).
     Does not synchronise."""
-    global _launches
     if not 0 < or_nbits < 32:
         raise ValueError(f"or_nbits must be in (0, 32), got {or_nbits}")
     groups = (data_sum, data_max, data_min, data_or)
     if all(d is None for d in groups):
         raise ValueError("segment_fused needs at least one payload")
-    device = edge_perm.device
-    if device.type != "cuda":
-        raise ValueError(f"segment_fused runs on CUDA tensors, got {device}")
-    _check("edge_perm", edge_perm, device, 2)
-    _check("lrow", lrow, device, 2)
-    if lrow.shape != edge_perm.shape:
-        raise ValueError(
-            f"lrow {tuple(lrow.shape)} != edge_perm {tuple(edge_perm.shape)}"
-        )
+    device = _check_plan(edge_perm, lrow, n_rows, r_blk)
     n_blocks, e_blk = edge_perm.shape
-    if not 0 < n_rows <= n_blocks * r_blk:
-        raise ValueError(
-            f"n_rows={n_rows} outside (0, n_blocks*r_blk={n_blocks * r_blk}]"
-        )
     n_edges = None
     for name, d in zip(("data_sum", "data_max", "data_min", "data_or"),
                        groups):
         if d is None:
             continue
-        _check(name, d, device, 2)
+        check(name, d, device, 2)
         if n_edges is not None and d.shape[0] != n_edges:
             raise ValueError(f"{name} has {d.shape[0]} edges, expected "
                              f"{n_edges}")
@@ -112,6 +107,7 @@ def segment_fused(
     if smem > _SMEM_LIMIT:
         raise ValueError(f"r_blk={r_blk} x {sum(widths)} payload columns "
                          f"needs {smem} B of shared memory (> {_SMEM_LIMIT})")
+    require_cuda("segment_fused", device)
     outs = [
         None if d is None else torch.empty(
             (n_rows, d.shape[1]), dtype=torch.int32, device=device
@@ -122,14 +118,39 @@ def segment_fused(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _launcher()(
-            edge_perm.data_ptr(), lrow.data_ptr(),
-            *(ptr(d) for d in groups), *(ptr(o) for o in outs),
-            n_blocks, e_blk, r_blk, n_rows, *widths, or_nbits, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"segment_fused launch failed: CUDA error {err}")
-    _launches += 1
+    launch("segment_fused", _launcher("segment_fused"), device,
+           edge_perm.data_ptr(), lrow.data_ptr(),
+           *(ptr(d) for d in groups), *(ptr(o) for o in outs),
+           n_blocks, e_blk, r_blk, n_rows, *widths, or_nbits)
     return tuple(outs)
+
+
+def segment_sum(
+    data: torch.Tensor,        # [E, D] float32 / bfloat16 edge payloads
+    edge_perm: torch.Tensor,   # [n_blocks, E_BLK] i32 edge ids (pack_blocks)
+    lrow: torch.Tensor,        # [n_blocks, E_BLK] i32 local rows (R_BLK = pad)
+    n_rows: int,
+    *,
+    r_blk: int,
+) -> torch.Tensor:
+    """Launch the kernel on the current stream; returns the [n_rows, D]
+    per-row sums in ``data``'s type (float32 accumulation, one rounding).
+    Does not synchronise."""
+    device = _check_plan(edge_perm, lrow, n_rows, r_blk)
+    check("data", data, device, 2, tuple(_SUM_DTYPES))
+    n_blocks, e_blk = edge_perm.shape
+    d = data.shape[1]
+    if data.shape[0] == 0 or d == 0:
+        raise ValueError(f"segment_sum needs a non-empty [E, D] payload, got "
+                         f"{tuple(data.shape)}")
+    smem = 4 * r_blk * _SUM_COLS
+    if smem > _SUM_SMEM_LIMIT:
+        raise ValueError(f"r_blk={r_blk} needs {smem} B of shared memory "
+                         f"(> {_SUM_SMEM_LIMIT})")
+    require_cuda("segment_sum", device)
+    out = torch.empty((n_rows, d), dtype=data.dtype, device=device)
+    launch("segment_sum", _launcher("segment_sum"), device,
+           edge_perm.data_ptr(), lrow.data_ptr(), data.data_ptr(),
+           out.data_ptr(), n_blocks, e_blk, r_blk, n_rows, d,
+           _SUM_DTYPES[data.dtype])
+    return out

@@ -1,5 +1,6 @@
 """Public segment-reduction API: host-side CSR→blocked-ELL packing and the
-device dispatch of the fused reduction (CPU → plain torch, CUDA → kernel)."""
+device dispatch of the fused int32 reduction and of the float segment sum
+(CPU → plain torch, CUDA → kernel)."""
 
 from __future__ import annotations
 
@@ -8,8 +9,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import device_kind
 from repro_torch.kernels.segment_coo import kernel as K
-from repro_torch.kernels.segment_coo.ref import segment_fused_blocked_ref
+from repro_torch.kernels.segment_coo.ref import (
+    segment_fused_blocked_ref, segment_sum_blocked_ref,
+)
 
 
 def pack_blocks(
@@ -39,6 +43,43 @@ def pack_blocks(
     return edge_perm, lrow, e_blk
 
 
+def _unblock(out: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """[n_blocks, R_BLK, D] → the first n_rows rows of [n_blocks*R_BLK, D]."""
+    return out.reshape(out.shape[0] * out.shape[1], -1)[:n_rows]
+
+
+def segment_sum_plain(
+    data: torch.Tensor, edge_perm: torch.Tensor, lrow: torch.Tensor,
+    n_rows: int, *, r_blk: int = 8,
+) -> torch.Tensor:
+    """Plain torch form of :func:`segment_sum_coo`: gather the payloads into
+    [n_blocks, E_BLK, D] blocks, sum per block, unblock."""
+    n_blocks, e_blk = edge_perm.shape
+    blocked = data[edge_perm.reshape(-1).long()].reshape(
+        n_blocks, e_blk, data.shape[-1])
+    return _unblock(segment_sum_blocked_ref(blocked, lrow, r_blk=r_blk),
+                    n_rows)
+
+
+def segment_sum_coo(
+    data: torch.Tensor,        # [E, D] float edge payloads (edge order)
+    edge_perm: torch.Tensor,   # [n_blocks, E_BLK] from pack_blocks
+    lrow: torch.Tensor,        # [n_blocks, E_BLK]
+    n_rows: int,
+    *,
+    r_blk: int = 8,
+) -> torch.Tensor:
+    """Blocked segment sum; returns [n_rows, D] in data's type (float32
+    accumulation, one rounding).
+
+    CUDA tensors launch the hand-written kernel (payloads gathered inside
+    it; float32 or bfloat16); CPU tensors take the plain torch version.
+    Anything else — another device, or a mix — raises."""
+    if device_kind("segment_sum_coo", data, edge_perm, lrow) == "cuda":
+        return K.segment_sum(data, edge_perm, lrow, n_rows, r_blk=r_blk)
+    return segment_sum_plain(data, edge_perm, lrow, n_rows, r_blk=r_blk)
+
+
 def segment_fused_plain(
     edge_perm: torch.Tensor, lrow: torch.Tensor, n_rows: int, *,
     data_sum: torch.Tensor | None = None,
@@ -61,10 +102,7 @@ def segment_fused_plain(
         gather(data_sum), gather(data_max), gather(data_min), lrow,
         data_or=gather(data_or), or_nbits=or_nbits, r_blk=r_blk,
     )
-    return tuple(
-        o.reshape(n_blocks * r_blk, -1)[:n_rows] if o is not None else None
-        for o in outs
-    )
+    return tuple(None if o is None else _unblock(o, n_rows) for o in outs)
 
 
 def segment_fused_coo(
@@ -89,13 +127,8 @@ def segment_fused_coo(
     groups = (data_sum, data_max, data_min, data_or)
     if all(d is None for d in groups):
         raise ValueError("segment_fused_coo needs at least one payload")
-    kinds = {t.device.type for t in (edge_perm, lrow, *groups)
-             if t is not None}
     kw = dict(data_sum=data_sum, data_max=data_max, data_min=data_min,
               data_or=data_or, or_nbits=or_nbits, r_blk=r_blk)
-    if kinds == {"cuda"}:
+    if device_kind("segment_fused_coo", edge_perm, lrow, *groups) == "cuda":
         return K.segment_fused(edge_perm, lrow, n_rows, **kw)
-    if kinds == {"cpu"}:
-        return segment_fused_plain(edge_perm, lrow, n_rows, **kw)
-    raise ValueError(f"segment_fused_coo got tensors on {sorted(kinds)}; "
-                     "expected all on the CPU or all on CUDA")
+    return segment_fused_plain(edge_perm, lrow, n_rows, **kw)

@@ -3,9 +3,10 @@
 These mirror ``jax.ops.segment_{sum,max,min}`` exactly: the output has
 ``num_segments`` rows, empty segments hold the reduction identity (0, the
 dtype's min for max, its max for min), and integer sums wrap like int32.
-``segment_fused_blocked_ref`` is the plain version of the hand-written CUDA
-kernel in :mod:`repro_torch.kernels.segment_coo.kernel`: the CPU path, and
-what the kernel is held against on the card.
+``segment_fused_blocked_ref`` and ``segment_sum_blocked_ref`` are the plain
+versions of the hand-written CUDA kernels in
+:mod:`repro_torch.kernels.segment_coo.kernel`: the CPU path, and what the
+kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -30,6 +31,15 @@ def segment_sum(data: torch.Tensor, seg: torch.Tensor,
     out = torch.zeros((num_segments,) + data.shape[1:], dtype=data.dtype,
                       device=data.device)
     return out.index_add_(0, seg, data)
+
+
+def segment_sum_ref(data: torch.Tensor, seg: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """Plain COO segment sum as the float kernels compute it: bfloat16 /
+    float16 payloads accumulate in float32 and round to their type once."""
+    acc = (torch.promote_types(data.dtype, torch.float32)
+           if data.dtype.is_floating_point else data.dtype)
+    return segment_sum(data.to(acc), seg, num_segments).to(data.dtype)
 
 
 def segment_max(data: torch.Tensor, seg: torch.Tensor,
@@ -69,6 +79,35 @@ def segment_or_ref(
     return ((cnt > 0).to(data.dtype) << shifts).sum(dim=-1, dtype=data.dtype)
 
 
+def _block_segments(lrow: torch.Tensor, r_blk: int):
+    """Flat segment ids of a [n_blocks, E_BLK] packing: block b's local row
+    r is segment b*(r_blk+1) + r, and segment b*(r_blk+1) + r_blk collects
+    the padding slots (out-of-range local rows are padding too, as jax.ops
+    drops them).  Returns (seg [n_blocks*E_BLK] i64, n_seg)."""
+    n_blocks = lrow.shape[0]
+    lr = torch.where((lrow < 0) | (lrow > r_blk), r_blk, lrow)
+    seg = (
+        torch.arange(n_blocks, device=lrow.device, dtype=torch.int64)[:, None]
+        * (r_blk + 1) + lr.to(torch.int64)
+    ).reshape(-1)
+    return seg, n_blocks * (r_blk + 1)
+
+
+def segment_sum_blocked_ref(
+    data: torch.Tensor,   # [n_blocks, E_BLK, D] gathered float payloads
+    lrow: torch.Tensor,   # [n_blocks, E_BLK] (R_BLK = padding)
+    *,
+    r_blk: int,
+) -> torch.Tensor:
+    """Per-block segment sum; returns [n_blocks, R_BLK, D] in data's type.
+    Accumulates in float32 and rounds once, as the TPU kernel's one-hot
+    matmul does (``preferred_element_type=f32``)."""
+    n_blocks, e_blk, d = data.shape
+    seg, n_seg = _block_segments(lrow, r_blk)
+    out = segment_sum_ref(data.reshape(n_blocks * e_blk, d), seg, n_seg)
+    return out.reshape(n_blocks, r_blk + 1, d)[:, :r_blk]
+
+
 def segment_fused_blocked_ref(
     data_sum: torch.Tensor | None,   # [n_blocks, E_BLK, Ds]
     data_max: torch.Tensor | None,   # [n_blocks, E_BLK, Dm]
@@ -84,13 +123,7 @@ def segment_fused_blocked_ref(
     (None for absent groups).  Row ``r_blk`` of every block collects the
     padding slots and is sliced off."""
     n_blocks, e_blk = lrow.shape
-    # out-of-range local rows are padding too (jax.ops drops them)
-    lr = torch.where((lrow < 0) | (lrow > r_blk), r_blk, lrow)
-    seg = (
-        torch.arange(n_blocks, device=lrow.device, dtype=torch.int64)[:, None]
-        * (r_blk + 1) + lr.to(torch.int64)
-    ).reshape(-1)
-    n_seg = n_blocks * (r_blk + 1)
+    seg, n_seg = _block_segments(lrow, r_blk)
 
     def blocked(op, data, **kw):
         if data is None:

@@ -1,16 +1,45 @@
-"""Capped-window activity / clique predicates in plain torch.
+"""Public API of the capped-window machinery.
 
-:func:`window_active_bits` / :func:`window_clique_ok` are the fresh-status
-forms used by rule *applications* and by the engine's ``torch`` backend;
-the blocked backends compute the same bits through the fused edge pass
-(static window-position payloads in the SegPlan — see
-:mod:`repro_torch.core.engine`).  Neither is a kernel.  The per-edge window
-intersection (``common_neighbor_stats``) and its kernel are not ported yet.
+  * :func:`common_neighbor_stats` — weighted / active window intersection
+    per edge (the single-edge rules' C and K): CUDA tensors launch the
+    hand-written kernel (:mod:`repro_torch.kernels.wedge_intersect.kernel`),
+    CPU tensors take its plain version;
+  * :func:`window_active_bits` / :func:`window_clique_ok` — the
+    fresh-status activity and clique predicates, plain torch, used by rule
+    *applications* and by the engine's ``torch`` backend; the blocked
+    backends compute the same bits through the fused edge pass (static
+    window-position payloads in the SegPlan — see
+    :mod:`repro_torch.core.engine`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import device_kind
+from repro_torch.kernels.wedge_intersect import kernel as K
+from repro_torch.kernels.wedge_intersect.ref import common_neighbor_stats_ref
+
+
+def common_neighbor_stats(
+    window: torch.Tensor,    # [V, D] capped neighbor lists (nil padded)
+    weights: torch.Tensor,   # [V] current weights
+    active: torch.Tensor,    # [V] bool
+    row: torch.Tensor,       # [E]
+    col: torch.Tensor,       # [E]
+):
+    """(C[e], K[e]) = weighted / active common-neighborhood per edge, two
+    [E] int32 tensors.
+
+    Entries are drawn from W(row); membership is tested against W(col), so
+    the result is the capped lower bound the single-edge rules require.
+    CUDA tensors launch the kernel (int32 windows, weights and edges, width
+    up to 32), CPU tensors take the plain torch version; another device or
+    a mix raises.  Indices are taken to be valid vertices."""
+    if device_kind("common_neighbor_stats", window, weights, active, row,
+                   col) == "cuda":
+        return K.wedge_intersect(window, weights, active, row, col)
+    return common_neighbor_stats_ref(window, weights, active, row, col)
 
 
 def window_active_bits(

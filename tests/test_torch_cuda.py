@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernel on the card: held against its plain torch
-version, exactly, and the ``cuda`` backend's solve against the CPU run.
+"""The hand-written CUDA kernels on the card: each held against its plain
+torch version (the int32 kernels exactly, the float ones at the tolerance
+stated beside them), and the ``cuda`` backend's solve against the CPU run.
 
 Needs a CUDA card (marker ``gpu``); skips on a CPU-only machine.  On the
 card: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py``.
@@ -9,14 +10,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import distributed as D
 from repro_torch.core import partition as part
 from repro_torch.core import solvers as S
 from repro_torch.graphs import generators as gen
+from repro_torch.kernels.embedding_bag import kernel as EK
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.segment_coo import kernel as K
 from repro_torch.kernels.segment_coo.ops import (
-    pack_blocks, segment_fused_coo, segment_fused_plain,
+    pack_blocks, segment_fused_coo, segment_fused_plain, segment_sum_coo,
+    segment_sum_plain,
 )
+from repro_torch.kernels.wedge_intersect import kernel as WK
+from repro_torch.kernels.wedge_intersect.ops import common_neighbor_stats
+from repro_torch.kernels.wedge_intersect.ref import common_neighbor_stats_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -50,11 +59,11 @@ def test_kernel_matches_plain(cuda, n_rows, n_edges, r_blk, widths, nbits):
     }
     perm = torch.from_numpy(perm.astype(np.int32)).to(cuda)
     lrow = torch.from_numpy(lrow).to(cuda)
-    before = K.launch_count()
+    before = kernels.launch_count("segment_fused")
     got = segment_fused_coo(perm, lrow, n_rows, r_blk=r_blk, or_nbits=nbits,
                             **data)
     torch.cuda.synchronize()
-    assert K.launch_count() == before + 1
+    assert kernels.launch_count("segment_fused") == before + 1
     want = segment_fused_plain(perm, lrow, n_rows, r_blk=r_blk,
                                or_nbits=nbits, **data)
     for g, w in zip(got, want):
@@ -84,12 +93,134 @@ def test_cuda_solve_matches_cpu(cuda, algo, mode):
         cs, _, cr = D.disredu(pg, cfg, device="cpu")
         assert gr == cr
     else:
-        before = K.launch_count()
+        before = kernels.launch_count("segment_fused")
         gm, gs = S.solve(pg, algo, cfg, device=cuda)
-        assert K.launch_count() > before
+        assert kernels.launch_count("segment_fused") > before
         cm, cs = S.solve(pg, algo, cfg, device="cpu")
         np.testing.assert_array_equal(gm, cm)
         assert g.is_independent_set(gm)
     for f in ("w", "status", "log_kind", "log_v", "log_u", "log_n",
               "offset"):
         assert torch.equal(getattr(gs, f).cpu(), getattr(cs, f)), f
+
+
+@pytest.mark.parametrize("n_rows,n_edges,d,r_blk", [
+    (17, 120, 8, 8), (64, 9, 128, 8), (5, 64, 16, 4), (33, 257, 32, 16),
+    (700, 3000, 602, 64), (5000, 40000, 128, 8),
+    (900, 4000, 200, 94), (900, 4000, 200, 95), (3000, 9000, 130, 452),
+    (1000, 40000, 128, 8),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_kernel_matches_plain(cuda, n_rows, n_edges, d, r_blk,
+                                          dtype):
+    """Both accumulate in float32 and round once; the kernel sums each row
+    in slot order, the plain version on the card by atomics in any order.
+    float32: within 1e-5 of the row's sum of |x|; bfloat16: one ulp of the
+    result (2^-7 relative) plus that float32 slack."""
+    rng = np.random.default_rng(0)
+    row = rng.integers(0, n_rows, size=n_edges).astype(np.int32)
+    perm, lrow, _ = pack_blocks(row, n_rows, r_blk=r_blk)
+    data = torch.from_numpy(rng.normal(size=(n_edges, d))).to(cuda, dtype)
+    perm = torch.from_numpy(perm.astype(np.int32)).to(cuda)
+    lrow = torch.from_numpy(lrow).to(cuda)
+    before = kernels.launch_count("segment_sum")
+    got = segment_sum_coo(data, perm, lrow, n_rows, r_blk=r_blk)
+    torch.cuda.synchronize()
+    assert kernels.launch_count("segment_sum") == before + 1
+    assert got.dtype == dtype and got.shape == (n_rows, d)
+    want = segment_sum_plain(data, perm, lrow, n_rows, r_blk=r_blk).float()
+    scale = segment_sum_plain(data.abs(), perm, lrow, n_rows,
+                              r_blk=r_blk).float()
+    tol = 1e-5 * scale
+    if dtype == torch.bfloat16:
+        tol = tol + want.abs() * 2.0 ** -7
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def _wedge_case(rng, n_vertices, n_edges, d):
+    window = rng.integers(0, n_vertices, size=(n_vertices, d))
+    weights = rng.integers(0, 200, size=n_vertices)
+    active = rng.integers(0, 2, size=n_vertices).astype(bool)
+    row = rng.integers(0, n_vertices, size=n_edges)
+    col = rng.integers(0, n_vertices, size=n_edges)
+    return (torch.from_numpy(window.astype(np.int32)),
+            torch.from_numpy(weights.astype(np.int32)),
+            torch.from_numpy(active), torch.from_numpy(row.astype(np.int32)),
+            torch.from_numpy(col.astype(np.int32)))
+
+
+@pytest.mark.parametrize("n_vertices,n_edges,d", [
+    (51, 100, 8), (51, 513, 16), (51, 7, 4), (40, 300, 7), (30, 200, 32),
+    (1000, 20000, 16), (200, 1000, 12),
+])
+def test_wedge_intersect_kernel_matches_plain(cuda, n_vertices, n_edges, d):
+    """All int32: exact."""
+    args = _wedge_case(np.random.default_rng(1), n_vertices, n_edges, d)
+    before = kernels.launch_count("wedge_intersect")
+    got = common_neighbor_stats(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert kernels.launch_count("wedge_intersect") == before + 1
+    want = common_neighbor_stats_ref(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("d", [4, 8, 16, 32])
+def test_wedge_intersect_kernel_takes_an_unaligned_window(cuda, d):
+    """A window that starts 4 bytes past a 16-byte boundary (a view at an
+    odd element) takes the element-wise reads, not the 16-byte vectors."""
+    args = _wedge_case(np.random.default_rng(3), 300, 2000, d)
+    buf = torch.empty(args[0].numel() + 1, dtype=torch.int32, device=cuda)
+    window = buf[1:].view(args[0].shape)
+    window.copy_(args[0])
+    assert window.is_contiguous() and window.data_ptr() % 16 == 4
+    got = common_neighbor_stats(window, *(a.to(cuda) for a in args[1:]))
+    torch.cuda.synchronize()
+    for g, w in zip(got, common_neighbor_stats_ref(*args)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("V,B,K_,D", [
+    (100, 33, 4, 16), (64, 8, 1, 128), (500, 70, 7, 32), (100, 9, 3, 5),
+    (100_000, 8192, 4, 128), (2000, 512, 32, 128),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_kernel_matches_plain(cuda, V, B, K_, D, dtype):
+    """Both accumulate in float32 and round once.  float32: the JAX test's
+    1e-5 (rtol and atol); bfloat16: one ulp of the result (2^-7 relative)
+    on top of 1e-5 of the bag's sum of |w x|, which a kernel adding in
+    bfloat16 would exceed at K = 32."""
+    rng = np.random.default_rng(2)
+    table = torch.from_numpy(rng.normal(size=(V, D))).to(cuda, dtype)
+    idx = torch.from_numpy(rng.integers(0, V, size=(B, K_)).astype(np.int32))
+    wgt = torch.from_numpy(rng.normal(size=(B, K_)).astype(np.float32))
+    before = kernels.launch_count("embedding_bag")
+    got = embedding_bag(table, idx.to(cuda), wgt.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.launch_count("embedding_bag") == before + 1
+    assert got.dtype == dtype and got.shape == (B, D)
+    want = embedding_bag_ref(table, idx.to(cuda), wgt.to(cuda)).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.float(), want, rtol=1e-5, atol=1e-5)
+    else:
+        scale = embedding_bag_ref(table.float().abs(), idx.to(cuda),
+                                  wgt.abs().to(cuda))
+        tol = 1e-5 * scale + want.abs() * 2.0 ** -7
+        assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def test_new_kernels_reject_other_dtypes(cuda):
+    perm = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+    lrow = torch.full((1, 8), 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.segment_sum(torch.zeros((1, 4), dtype=torch.float64, device=cuda),
+                      perm, lrow, 8, r_blk=8)
+    win = torch.zeros((4, 8), dtype=torch.int64, device=cuda)
+    ones = torch.ones(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        WK.wedge_intersect(win, ones, ones.bool(), ones, ones)
+    with pytest.raises(TypeError, match="float32"):
+        EK.embedding_bag(torch.zeros((4, 8), device=cuda),
+                         torch.zeros((2, 2), dtype=torch.int32, device=cuda),
+                         torch.zeros((2, 2), dtype=torch.float64,
+                                     device=cuda))

@@ -1,0 +1,84 @@
+"""Port parity: the sum-mode EmbeddingBag's plain torch version and ops
+wrapper against the JAX package's oracle and its ops wrapper on the oracle
+path.  The Pallas kernel itself is not run: it calls ``pl.load``, which the
+installed jax no longer has.
+
+Tolerances are the JAX test's (tests/test_kernels.py): float32 1e-5,
+bfloat16 3e-2 (rtol and atol); both sides accumulate in float32.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.embedding_bag import ops as jops
+from repro.kernels.embedding_bag.ref import embedding_bag_ref as jref
+from repro_torch import kernels
+from repro_torch.kernels.embedding_bag import kernel as tkernel
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny tensors: one intra-op thread, so torch's pool does not fight
+    JAX's (and the other test workers') threads for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+DTYPES = [(jnp.float32, torch.float32, 1e-5), (jnp.bfloat16, torch.bfloat16,
+                                               3e-2)]
+
+
+# the shapes of tests/test_kernels.py::test_embedding_bag_kernel_matches_ref
+@pytest.mark.parametrize("V,B,K,D", [
+    (100, 33, 4, 16), (64, 8, 1, 128), (500, 70, 7, 32),
+])
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+def test_embedding_bag_matches_reference(V, B, K, D, jdt, tdt, tol):
+    rng = np.random.default_rng(2)
+    jtable = jnp.asarray(rng.normal(size=(V, D)), jdt)
+    idx = rng.integers(0, V, size=(B, K)).astype(np.int32)
+    wgt = rng.normal(size=(B, K)).astype(np.float32)
+    # the same table values on both sides (rounded once, by JAX)
+    ttable = torch.from_numpy(np.array(jtable, np.float32)).to(tdt)
+    targs = (ttable, torch.from_numpy(idx), torch.from_numpy(wgt))
+    jargs = (jtable, jnp.asarray(idx), jnp.asarray(wgt))
+    before = kernels.launch_count("embedding_bag")
+    got = embedding_bag(*targs)
+    assert kernels.launch_count("embedding_bag") == before
+    assert got.dtype == tdt and got.shape == (B, D)
+    for want in (jref(*jargs), jops.embedding_bag(*jargs, force_pallas=False)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+    assert torch.equal(embedding_bag_ref(*targs), got)
+
+
+def test_embedding_bag_wrapper_refuses_what_it_cannot_run():
+    """The kernel wrapper checks before it builds or launches anything: a
+    wrong type or shape, mixed devices and CPU tensors raise, and nothing
+    is counted as a launch; the op raises on a mix of devices."""
+    table = torch.zeros((10, 8))
+    idx = torch.zeros((3, 2), dtype=torch.int32)
+    wgt = torch.ones((3, 2))
+    before = kernels.launch_count("embedding_bag")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tkernel.embedding_bag(table.double(), idx, wgt)
+    with pytest.raises(TypeError, match="int32"):
+        tkernel.embedding_bag(table, idx.long(), wgt)
+    with pytest.raises(TypeError, match="float32"):
+        tkernel.embedding_bag(table, idx, wgt.bfloat16())
+    with pytest.raises(ValueError, match="wgt"):
+        tkernel.embedding_bag(table, idx, wgt[:, :1].contiguous())
+    with pytest.raises(ValueError, match="is on meta"):
+        tkernel.embedding_bag(table, idx.to("meta"), wgt)
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.embedding_bag(table, idx, wgt)
+    with pytest.raises(ValueError, match="expected all on the CPU"):
+        embedding_bag(table, idx, wgt.to("meta"))
+    assert kernels.launch_count("embedding_bag") == before

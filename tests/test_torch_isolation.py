@@ -1,6 +1,7 @@
 """The port stands alone: importing and running it loads neither JAX nor
 the reference package, an entry point without ``device=`` refuses to run
-when no GPU is visible, and CPU tensors never count as kernel launches."""
+when no GPU is visible, and CPU tensors never count as kernel launches —
+neither on the solver's path nor through the three kernel ops off it."""
 
 import os
 import subprocess
@@ -13,13 +14,17 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 SCRIPT = textwrap.dedent("""
     import sys
 
+    import numpy as np
     import torch
 
+    from repro_torch import kernels
     from repro_torch.core import distributed as D
     from repro_torch.core import partition as part
     from repro_torch.core import solvers as S
     from repro_torch.graphs import generators as gen
-    from repro_torch.kernels.segment_coo import kernel as K
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.segment_coo.ops import pack_blocks, segment_sum_coo
+    from repro_torch.kernels.wedge_intersect.ops import common_neighbor_stats
     from repro_torch.launch import mwis_run
 
     assert not torch.cuda.is_available()
@@ -29,7 +34,27 @@ SCRIPT = textwrap.dedent("""
                           backend="cuda")
     members, _ = S.solve(pg, "rnp", cfg, device="cpu")
     assert g.is_independent_set(members)
-    assert K.launch_count() == 0, K.launch_count()
+    assert kernels.launch_count("segment_fused") == 0
+
+    prob = D.build_union_problem(pg, "torch", device="cpu")
+    c, k = common_neighbor_stats(prob.aux.window, prob.w0,
+                                 prob.is_local | prob.is_ghost,
+                                 prob.aux.row, prob.aux.col)
+    assert c.shape == k.shape == prob.aux.row.shape
+    row = prob.aux.row.numpy()
+    perm, lrow, _ = pack_blocks(row, prob.p * prob.V, r_blk=8)
+    data = torch.ones((row.shape[0], 3), dtype=torch.bfloat16)
+    s = segment_sum_coo(data, torch.from_numpy(perm.astype(np.int32)),
+                        torch.from_numpy(lrow), prob.p * prob.V)
+    assert s.dtype == torch.bfloat16
+    assert int(s.float().sum()) == 3 * row.shape[0]
+    out = embedding_bag(torch.ones((5, 4)), torch.zeros((2, 3),
+                                                         dtype=torch.int32),
+                        torch.ones((2, 3)))
+    assert out.tolist() == [[3.0] * 4] * 2
+    counts = tuple(kernels.launch_count(k) for k in (
+        "segment_fused", "segment_sum", "wedge_intersect", "embedding_bag"))
+    assert counts == (0, 0, 0, 0), counts
 
     for call in (lambda: S.solve(pg, "rnp", cfg),
                  lambda: D.disredu(pg, cfg),

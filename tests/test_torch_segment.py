@@ -11,6 +11,7 @@ import torch
 
 from repro.kernels.segment_coo import ops as jops
 from repro.kernels.segment_coo.kernel import segment_fused_blocked
+from repro_torch import kernels
 from repro_torch.kernels.segment_coo import kernel as tkernel
 from repro_torch.kernels.segment_coo import ops as tops
 from repro_torch.kernels.segment_coo.ref import (
@@ -155,7 +156,7 @@ def test_kernel_wrapper_refuses_what_it_cannot_run():
     perm, lrow, _ = tops.pack_blocks(row, 9, r_blk=8)
     perm = torch.from_numpy(perm.astype(np.int32))
     lrow = torch.from_numpy(lrow)
-    before = tkernel.launch_count()
+    before = kernels.launch_count("segment_fused")
     with pytest.raises(ValueError, match="or_nbits"):
         tkernel.segment_fused(perm, lrow, 9, r_blk=8,
                               data_sum=torch.from_numpy(dsum), or_nbits=32)
@@ -165,4 +166,4 @@ def test_kernel_wrapper_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="expected all on the CPU"):
         tops.segment_fused_coo(perm, lrow, 9, r_blk=8,
                                data_sum=torch.from_numpy(dsum).to("meta"))
-    assert tkernel.launch_count() == before
+    assert kernels.launch_count("segment_fused") == before
