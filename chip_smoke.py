@@ -7,7 +7,8 @@
 Phases, in order (any failure exits non-zero; no phase catches and
 continues):
 
-  1. device  — the card as ``nvidia-smi`` names it, with its power limit;
+  1. device  — the card as ``nvidia-smi`` names it, with its power limit
+               and its maximum SM clock (which sets the operation bounds);
   2. build   — compile the four CUDA kernels from the sources in this
                checkout, one ``nvcc`` each, all started together;
   3. kernel  — the fused segment-reduction kernel against its plain torch
@@ -36,8 +37,9 @@ continues):
   9. rnp     — rnp/edges-only on ``cuda`` at ``--rnp-n`` (its host-driven
                peel loop does not fit the time limit at full size);
  10. oracle  — greedy on the card equals the sequential priority greedy;
- 11. profile — the full-size reduce run again under torch.profiler: device
-               time by kernel and the device's busy share of the wall time;
+ 11. profile — the reduce run again under torch.profiler: device time by
+               kernel and by op, and the device's busy share of the wall
+               time;
  12. segment_sum at size — graphsage-reddit ``minibatch_lg``: the fanout
                sampler's subgraph (1,024 seeds, fanouts 15 and 10: 169,984
                rows, 168,960 edges into the first 16,384 rows), D = 602 and
@@ -65,11 +67,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit).
+#: H100 SXM memory rate (NVIDIA data sheet, at the full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
-#: The data sheet's float32 rate outside the tensor cores; int32 ALU work
-#: runs at no more than this, so it gives a lower bound on the op time.
-CUDA_CORE_OPS_PER_S = 67e12
+#: Operations an SM retires per clock outside the tensor cores, by class
+#: (Hopper white paper: 128 FP32 lanes, 64 INT32 lanes a SM).  An FMA
+#: counts once.  The rates are these times the SMs and the card's maximum
+#: SM clock (``CARD``, filled from the device at start).
+LANES_PER_SM_CLOCK = {"int32": 64, "fp32_add": 128, "fp32_fma": 128}
+CARD = {"sms": 0, "max_sm_hz": 0.0}
 
 #: graphsage-reddit ``minibatch_lg`` (src/repro/configs/base.py): 1,024
 #: seed nodes sampled at fanouts (15, 10) give 169,984 nodes and 168,960
@@ -188,29 +193,32 @@ def run_op(kernel: str, call):
     return out, n
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float, op_class: str) -> tuple[float, str]:
     """Least time the card could take (ms) and what sets it: the bytes at
-    the HBM rate or the operations at the CUDA cores' rate."""
+    the HBM rate or the operations at their class's rate."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    ops_per_s = (LANES_PER_SM_CLOCK[op_class] * CARD["sms"]
+                 * CARD["max_sm_hz"])
+    ops_ms = n_ops / ops_per_s * 1e3
     by = "bytes" if bytes_ms >= ops_ms else "operations"
     return max(bytes_ms, ops_ms), by
 
 
 def timings(label: str, kernel, plain, library, reps: int, n_bytes: float,
-            n_ops: float) -> dict:
+            n_ops: float, op_class: str) -> dict:
     """CUDA-event times of the kernel, its plain version and (where there
     is one) the single PyTorch call computing the same function, beside the
     bound."""
     out = dict(ms=cuda_ms(kernel, reps),
                plain_ms=cuda_ms(plain, max(reps // 4, 2), warmup=1),
                library_ms=None if library is None else cuda_ms(library, reps))
-    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops)
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops, op_class)
     lib = ("none" if library is None
            else f"{out['library_ms']:.5f}")
     phase(label, f"kernel_ms={out['ms']:.5f} plain_ms={out['plain_ms']:.5f} "
                  f"library_ms={lib} bound_ms={out['bound_ms']:.5f} "
-                 f"({out['bound_by']}: {int(n_bytes)} B, {int(n_ops)} ops) "
+                 f"({out['bound_by']}: {int(n_bytes)} B, {int(n_ops)} "
+                 f"{op_class} ops) "
                  f"bound/kernel={out['bound_ms'] / out['ms']:.4f}")
     return out
 
@@ -372,6 +380,7 @@ def wedge_at_full_size(res: dict, reps: int) -> dict:
     init = R.init_state(prob.w0, prob.is_local, prob.is_ghost)
     n_edges = aux.row.shape[0]
     n_vertices, d = aux.window.shape
+    merge_len = (aux.gid[aux.window.long()] >= 0).sum(1)
     out = dict(launches=0, max_abs_err=0)
     for label, st in (("initial", init), ("final", res["state"])):
         active = st.status == R.UNDECIDED
@@ -386,11 +395,15 @@ def wedge_at_full_size(res: dict, reps: int) -> dict:
                    f"active={int(active.sum())} "
                    f"sum_K={int(got[1].long().sum())}")
         # least bytes: row, col and both outputs per edge; window,
-        # weights and activity per vertex; ops: the D x D compare per edge
+        # weights and activity per vertex.  Least operations: the windows
+        # are sorted with the nil padding last (``core/partition.py``), so
+        # a merge of W(row) and W(col) takes one int32 compare per real
+        # entry of the two, not the TPU kernel's D x D
         t = timings(tag, lambda: WK.wedge_intersect(*args),
                     lambda: common_neighbor_stats_ref(*args), None, reps,
                     16 * n_edges + n_vertices * (4 * d + 5),
-                    n_edges * d * d)
+                    int(merge_len[aux.row.long()].sum()
+                        + merge_len[aux.col.long()].sum()), "int32")
         if label == "initial":
             out.update(t)
     return out
@@ -445,7 +458,7 @@ def same_result(a: dict, b: dict) -> bool:
 
 
 def kernel_at_full_size(res: dict, reps: int) -> dict:
-    """Phase 5: the kernel on the full-size plan with the real payload
+    """Phase 6: the kernel on the full-size plan with the real payload
     columns of the reduce run's final state (S/deg sums, M/only maxes,
     wbits/wnh ORs), against its plain version; times and bound."""
     import numpy as np
@@ -503,10 +516,10 @@ def kernel_at_full_size(res: dict, reps: int) -> dict:
     # least bytes: lrow once, edge_perm for the live slots only, each live
     # edge's payload row once, the [n_rows, cols] outputs once
     n_bytes = 4 * (n_blocks * e_blk + live + n_edges * cols + n_rows * cols)
-    n_ops = live * cols
+    n_ops = live * cols  # int32 add / max / min / or
     out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                max_abs_err=err)
-    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops)
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops, "int32")
     real = int((aux.gid[aux.row.long()] >= 0).sum())
     row_np = aux.row.cpu().numpy()
     for r in E.R_BLK_CANDIDATES:  # the packing census autotune chose from
@@ -524,13 +537,14 @@ def kernel_at_full_size(res: dict, reps: int) -> dict:
     phase("kernel-full", f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
                          f"scatter_reduce_ms={library_ms:.5f} "
                          f"bound_ms={out['bound_ms']:.5f} "
-                         f"({out['bound_by']}: {n_bytes} B, {n_ops} ops) "
+                         f"({out['bound_by']}: {n_bytes} B, {n_ops} "
+                         f"int32 ops) "
                          f"max_abs_err={err} (tolerance 0, int32)")
     return out
 
 
 def replay_seconds(res: dict, label: str) -> None:
-    """Phase 6: host time of the fold-log replay of one run's state."""
+    """Phase 8: host time of the fold-log replay of one run's state."""
     import torch
 
     from repro_torch.core import rules as R
@@ -542,8 +556,18 @@ def replay_seconds(res: dict, label: str) -> None:
                     f"reconstruct_members {time.time() - t0:.3f}s")
 
 
-def profile_reduce(args, g, pg) -> None:
-    """Phase 7: where the device time goes — the reduce run once more under
+def reduce_problem(args, pg):
+    """The full-size union problem and config of the reduce run, for the
+    profile."""
+    from repro_torch.core import distributed as D
+
+    cfg = D.DisReduConfig(heavy_k=args.heavy_k, mode=args.mode,
+                          schedule="cheap-fused", backend=args.backend)
+    return D.build_union_problem(pg, cfg.backend, cfg.r_blk, args.device), cfg
+
+
+def profile_reduce(prob, cfg) -> None:
+    """Phase 11: where the device time goes — the reduce run once more under
     torch.profiler; device time by kernel and the device's busy share of
     the run's wall time (union build excluded)."""
     import torch
@@ -551,11 +575,6 @@ def profile_reduce(args, g, pg) -> None:
 
     from repro_torch.core import distributed as D
 
-    a = argparse.Namespace(**{**vars(args), "algo": "reduce",
-                              "schedule": "cheap-fused"})
-    cfg = D.DisReduConfig(heavy_k=a.heavy_k, mode=a.mode,
-                          schedule=a.schedule, backend=a.backend)
-    prob = D.build_union_problem(pg, cfg.backend, cfg.r_blk, a.device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -572,9 +591,25 @@ def profile_reduce(args, g, pg) -> None:
                      f"busy_share={busy_us / 1e6 / wall:.4f}")
     if not rows:
         phase("profile", "the profiler saw no device time: not measured")
-    for e in sorted(rows, key=lambda e: -e.device_time_total)[:10]:
+    for e in sorted(rows, key=lambda e: -e.device_time_total)[:15]:
         phase("profile", f"{e.device_time_total / 1e3:10.3f} ms "
                          f"x{e.count:<6d} {e.key[:90]}")
+    # the same device time by the torch op that launched it (an op's time
+    # includes the ops it calls, so nested rows overlap)
+    ops = [e for e in prof.key_averages()
+           if e.key.startswith("aten::")
+           and getattr(e, "device_time_total", 0) > 0]
+    for e in sorted(ops, key=lambda e: -e.device_time_total)[:15]:
+        phase("profile", f"op {e.device_time_total / 1e3:10.3f} ms "
+                         f"x{e.count:<6d} {e.key}")
+    # the ops the rules' scatters and the exchange's board fills go through
+    by_key = {e.key: e for e in ops}
+    for key in ("aten::index_add_", "aten::scatter_reduce_",
+                "aten::index_put_", "aten::nonzero"):
+        e = by_key.get(key)
+        phase("profile", f"scatter op {key}: " + (
+            "no device time" if e is None else
+            f"{e.device_time_total / 1e3:.3f} ms x{e.count}"))
 
 
 def sampled_targets(seeds: int, fanouts: tuple[int, ...]) -> np.ndarray:
@@ -654,7 +689,8 @@ def segment_sum_at_size(dev, seed: int, reps: int) -> dict:
                        f"type by atomics)")
             es = data.element_size()
             # least bytes: lrow over every slot, edge_perm and the payload
-            # row of each edge (all live), the [n_rows, d] output
+            # row of each edge (all live), the [n_rows, d] output; ops: one
+            # float32 add per payload element
             t = timings(tag, lambda: K.segment_sum(data, perm, lrow, n_rows,
                                                    r_blk=r_blk),
                         lambda: segment_sum_plain(data, perm, lrow, n_rows,
@@ -662,7 +698,7 @@ def segment_sum_at_size(dev, seed: int, reps: int) -> dict:
                         library, reps,
                         4 * n_blocks * e_blk + 4 * n_edges
                         + es * d * (n_edges + n_rows),
-                        n_edges * d)
+                        n_edges * d, "fp32_add")
             if d == SEGMENT_SUM_SIZE["widths"][0] and dtype == torch.float32:
                 out.update(t)
         del x32, data
@@ -710,12 +746,13 @@ def embedding_bag_at_size(dev, seed: int, reps: int) -> dict:
                        f"table's type)")
             es = table.element_size()
             # least bytes: one table row, one index and one weight per
-            # lookup, one output row per bag; ops: multiply and add
+            # lookup, one output row per bag; ops: one float32 FMA per
+            # looked-up element
             t = timings(tag, lambda: EK.embedding_bag(table, idx, wgt),
                         lambda: embedding_bag_ref(table, idx, wgt),
                         library, reps,
                         B * k_bag * (D * es + 8) + B * D * es,
-                        2 * B * k_bag * D)
+                        B * k_bag * D, "fp32_fma")
             if (dtype == torch.float32
                     and k_bag == EMBEDDING_BAG_SIZE["bags"][0]):
                 out.update(t)
@@ -746,14 +783,21 @@ def main() -> None:
     dev = torch.device("cuda")
     t_start = time.time()
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(smi, flush=True)
+    def smi(query: str, *fmt: str) -> str:
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}",
+             "--format=" + ",".join(("csv", "noheader") + fmt)],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+
+    print(smi("name,power.limit"), flush=True)
+    CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    CARD["max_sm_hz"] = float(smi("clocks.max.sm", "nounits")) * 1e6
     phase("device", f"{torch.cuda.get_device_name(0)} "
-                    f"count={torch.cuda.device_count()} torch={torch.__version__}"
-                    f" cuda={torch.version.cuda} python={sys.version.split()[0]}")
+                    f"count={torch.cuda.device_count()} sms={CARD['sms']} "
+                    f"max_sm_clock={CARD['max_sm_hz'] / 1e6:.0f}MHz "
+                    f"torch={torch.__version__} cuda={torch.version.cuda} "
+                    f"python={sys.version.split()[0]}")
 
     from repro_torch import kernels
     from repro_torch.kernels.embedding_bag import kernel as EK
@@ -819,7 +863,7 @@ def main() -> None:
             gr["members"], np.asarray(mem_seq, bool)):
         fail("greedy on the card != sequential priority greedy")
     phase("oracle", f"greedy weight {gr['weight']} == sequential {w_seq}")
-    profile_reduce(base, g, pg)
+    profile_reduce(*reduce_problem(base, pg))
     torch.cuda.empty_cache()
     sfull = segment_sum_at_size(dev, opts.seed, opts.reps)
     efull = embedding_bag_at_size(dev, opts.seed, opts.reps)

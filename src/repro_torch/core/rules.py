@@ -12,8 +12,14 @@ Torch idiom against the JAX reference:
   * tensors are never updated in place — every scatter writes into a fresh
     clone, so a caller's snapshot of ``state.w`` / ``state.status`` stays
     valid (the round loops compare against them);
-  * scatters with repeated indices (``.at[i].set`` in JAX) only ever write
-    equal values to one slot, because ``index_put_`` on CUDA keeps an
+  * scatters write only their firing lanes, compacted by one ``nonzero``
+    (one host sync each).  The reference's ``.at[where(mask, i, nil)]``
+    idiom parks every other lane on the last slot of the target, which on
+    CUDA makes each of them an atomic or a store on one address; dropping
+    those lanes keeps every bit, because that slot is reset (``w[nil] = 0``)
+    or already holds what they wrote (the nil vertex stays EXCLUDED, the fold
+    log's ``cap - 1`` sentinel stays 0).  Repeated firing indices only ever
+    write equal values to one slot, because ``index_put_`` on CUDA keeps an
     arbitrary writer;
   * every sum over int32 passes ``dtype=torch.int32`` so ``offset`` /
     ``log_n`` wrap as JAX's int32 do; ``status`` is int8 throughout.
@@ -144,27 +150,52 @@ def _apply_include(
     return state._replace(status=status, changed=state.changed | accept.any())
 
 
-def _scatter_set(dst: torch.Tensor, idx: torch.Tensor,
-                 val) -> torch.Tensor:
-    """``dst.at[idx].set(val)`` into a fresh tensor (equal values only at
-    repeated indices — see the module docstring)."""
+def _lanes(mask: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The lanes where ``mask`` holds, as a ``nonzero`` index tuple in
+    ascending (row-major) order.  One host sync: the count sizes it."""
+    return mask.nonzero(as_tuple=True)
+
+
+def _pick(x, lanes):
+    """``x`` (mask-shaped, or a Python scalar) at the firing lanes."""
+    return x[lanes] if torch.is_tensor(x) else x
+
+
+def _set_at(dst: torch.Tensor, lanes, idx: torch.Tensor, val) -> torch.Tensor:
+    """``dst.at[idx].set(val)`` over the firing lanes, into a fresh tensor
+    (equal values only at repeated indices — see the module docstring)."""
     out = dst.clone()
-    out[idx.reshape(-1)] = val if not torch.is_tensor(val) \
-        else val.reshape(-1).to(dst.dtype)
+    out[_pick(idx, lanes)] = _pick(val, lanes)
     return out
 
 
+def _add_at(dst: torch.Tensor, lanes, idx: torch.Tensor,
+            val: torch.Tensor) -> torch.Tensor:
+    """``dst.at[idx].add(val)`` over the firing lanes, into a fresh tensor."""
+    return dst.clone().index_add_(0, _pick(idx, lanes),
+                                  _pick(val, lanes).to(dst.dtype))
+
+
+def _amax_at(dst: torch.Tensor, lanes, idx: torch.Tensor,
+             val: torch.Tensor) -> torch.Tensor:
+    """``dst.at[idx].max(val)`` over the firing lanes, into a fresh tensor."""
+    return dst.clone().scatter_reduce_(
+        0, _pick(idx, lanes).long(), _pick(val, lanes).to(dst.dtype), "amax",
+        include_self=True,
+    )
+
+
 def _log_append(
-    state: RedState, mask: torch.Tensor, kind: int, v_idx: torch.Tensor,
-    u_idx: torch.Tensor
+    state: RedState, mask: torch.Tensor, lanes, kind: int,
+    v_idx: torch.Tensor, u_idx: torch.Tensor
 ) -> RedState:
-    cap = state.log_kind.shape[0]
-    rank = torch.cumsum(mask.to(I32), 0, dtype=I32) - 1
-    pos = torch.where(mask, state.log_n + rank, cap - 1)
-    # cap-1 slot is a scratch sentinel; log_n never reaches it (init_state)
-    log_kind = _scatter_set(state.log_kind, pos, torch.where(mask, kind, 0))
-    log_v = _scatter_set(state.log_v, pos, torch.where(mask, v_idx, 0))
-    log_u = _scatter_set(state.log_u, pos, torch.where(mask, u_idx, 0))
+    """Append one record per firing lane (``lanes`` = ``_lanes(mask)``), in
+    lane order.  Slots past ``log_n`` stay 0: the reference's ``cap - 1``
+    sentinel, where it parks the other lanes, is one of them."""
+    pos = state.log_n + torch.cumsum(mask.to(I32), 0, dtype=I32) - 1
+    log_kind = _set_at(state.log_kind, lanes, pos, kind)
+    log_v = _set_at(state.log_v, lanes, pos, v_idx)
+    log_u = _set_at(state.log_u, lanes, pos, u_idx)
     n = state.log_n + mask.sum(dtype=I32)
     return state._replace(log_kind=log_kind, log_v=log_v, log_u=log_u, log_n=n)
 
@@ -219,22 +250,19 @@ def rule_degree_one(state: RedState, aux: Aux, ctx: SweepCtx) -> RedState:
     cand = aux.is_local & active & (deg == 1) & (state.w < w_u)
     cand &= aux.is_local[only] & active[only]
     # one fold per target u per sweep: keep the max-gid candidate
-    tgt = torch.where(cand, only, V - 1)
-    best = torch.full((V,), -1, dtype=I32, device=tgt.device).scatter_reduce_(
-        0, tgt.long(), torch.where(cand, aux.gid, -1), "amax",
-        include_self=True,
-    )
+    best = _amax_at(torch.full_like(state.w, -1), _lanes(cand), only,
+                    aux.gid)
     acc = cand & (aux.gid == best[only])
-    w = state.w.clone().index_add_(
-        0, torch.where(acc, only, V - 1), torch.where(acc, -state.w, 0)
-    )
-    w[V - 1] = 0
+    fold = _lanes(acc)
+    w = _add_at(state.w, fold, only, -state.w)
+    w[V - 1] = 0  # the reference's nil-slot reset
     status = torch.where(acc, FOLDED, state.status).to(I8)
     offset = state.offset + torch.where(acc, state.w, 0).sum(dtype=I32)
     state = state._replace(
         w=w, status=status, offset=offset, changed=state.changed | acc.any()
     )
-    return _log_append(state, acc, LOG_FOLD1, _arange(V, w), only.to(I32))
+    return _log_append(state, acc, fold, LOG_FOLD1, _arange(V, w),
+                       only.to(I32))
 
 
 # --------------------------------------------------------------------- #
@@ -311,24 +339,16 @@ def rule_weight_transfer(state: RedState, aux: Aux,
     w_tgt = state.w[tgt]
     excl_upd = accb & ent_active & (w_tgt <= wv[:, None])
     dec_upd = accb & ent_active & (w_tgt > wv[:, None])
-    nil_slot = V - 1
-    # plain EXCLUDED fill: non-accepted slots scatter onto the nil slot,
-    # which is EXCLUDED by invariant, so the unconditional value is safe
-    status = _scatter_set(
-        state.status, torch.where(excl_upd, tgt, nil_slot), EXCLUDED
-    )
+    status = _set_at(state.status, _lanes(excl_upd), tgt, EXCLUDED)
     status = torch.where(acc, FOLDED, status).to(I8)
-    w = state.w.clone().index_add_(
-        0, torch.where(dec_upd, tgt, nil_slot).reshape(-1),
-        torch.where(dec_upd, -wv[:, None], 0).reshape(-1),
-    )
-    w[nil_slot] = 0
+    w = _add_at(state.w, _lanes(dec_upd), tgt, (-wv[:, None]).expand_as(tgt))
+    w[V - 1] = 0  # the reference's nil-slot reset
     offset = state.offset + torch.where(acc, wv, 0).sum(dtype=I32)
     state = state._replace(
         w=w, status=status, offset=offset, changed=state.changed | acc.any()
     )
     idx = _arange(V, w)
-    return _log_append(state, acc, LOG_WT, idx, idx)
+    return _log_append(state, acc, _lanes(acc), LOG_WT, idx, idx)
 
 
 # --------------------------------------------------------------------- #
@@ -363,7 +383,6 @@ def rule_basic_single_edge(state: RedState, aux: Aux,
 @_requires("S")
 def rule_extended_single_edge(state: RedState, aux: Aux,
                               ctx: SweepCtx) -> RedState:
-    V = state.w.shape[0]
     active = _active(state)
     eact = _edge_active(aux, active)
     aw = _aw(state, active)
@@ -382,9 +401,7 @@ def rule_extended_single_edge(state: RedState, aux: Aux,
         & (gid_t < min_gid[:, None])
         & (gid_t >= 0)
     )
-    status = _scatter_set(
-        state.status, torch.where(upd, tgt, V - 1), EXCLUDED
-    )
+    status = _set_at(state.status, _lanes(upd), tgt, EXCLUDED)
     return state._replace(status=status, changed=state.changed | upd.any())
 
 

@@ -31,17 +31,16 @@ LIBS = {
 _ARGTYPES = {
     "segment_fused": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
-    "segment_sum": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    "segment_sum": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
 }
 
 #: Dynamic shared memory a segment_fused block takes without opting in.
 _SMEM_LIMIT = 48 * 1024
-#: Payload columns per segment_sum thread block (``kCols`` in the source),
-#: and the shared memory its blocks may opt into (Hopper: 227 KB a block,
-#: less the kernel's 1 KB of static shared memory).
-_SUM_COLS = 128
-_SUM_SMEM_LIMIT = 232_448 - 1024
+#: The largest r_blk segment_sum takes: one warp's shared memory
+#: (``warp_smem`` in the source, at its widest vector of 4 columns a lane)
+#: must fit the 227 KB a Hopper block may opt into, for every payload.
+_SUM_MAX_R_BLK = 452
 #: segment_sum's payload types and their code in the C interface.
 _SUM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,6 +67,20 @@ def _check_plan(edge_perm, lrow, n_rows: int, r_blk: int) -> torch.device:
             f"n_rows={n_rows} outside (0, n_blocks*r_blk={n_blocks * r_blk}]"
         )
     return device
+
+
+def _sum_vec(data: torch.Tensor) -> int:
+    """Columns a segment_sum lane reads at once: the widest of 4, 2 and 1
+    that divides the row (so every row keeps the payload pointer's
+    alignment), that the pointer is aligned to (a view may start at any
+    element), and that 32 lanes do not overrun (a narrow row keeps a warp's
+    lanes busy)."""
+    d, size = data.shape[1], data.element_size()
+    for vec in (4, 2):
+        if d % vec == 0 and data.data_ptr() % (vec * size) == 0 \
+                and 32 * vec <= d:
+            return vec
+    return 1
 
 
 def segment_fused(
@@ -143,14 +156,13 @@ def segment_sum(
     if data.shape[0] == 0 or d == 0:
         raise ValueError(f"segment_sum needs a non-empty [E, D] payload, got "
                          f"{tuple(data.shape)}")
-    smem = 4 * r_blk * _SUM_COLS
-    if smem > _SUM_SMEM_LIMIT:
-        raise ValueError(f"r_blk={r_blk} needs {smem} B of shared memory "
-                         f"(> {_SUM_SMEM_LIMIT})")
+    if r_blk > _SUM_MAX_R_BLK:
+        raise ValueError(f"r_blk={r_blk} does not fit a block's shared memory "
+                         f"(at most {_SUM_MAX_R_BLK})")
     require_cuda("segment_sum", device)
     out = torch.empty((n_rows, d), dtype=data.dtype, device=device)
     launch("segment_sum", _launcher("segment_sum"), device,
            edge_perm.data_ptr(), lrow.data_ptr(), data.data_ptr(),
            out.data_ptr(), n_blocks, e_blk, r_blk, n_rows, d,
-           _SUM_DTYPES[data.dtype])
+           _SUM_DTYPES[data.dtype], _sum_vec(data))
     return out

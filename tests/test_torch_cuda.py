@@ -104,25 +104,65 @@ def test_cuda_solve_matches_cpu(cuda, algo, mode):
         assert torch.equal(getattr(gs, f).cpu(), getattr(cs, f)), f
 
 
-@pytest.mark.parametrize("n_rows,n_edges,d,r_blk", [
-    (17, 120, 8, 8), (64, 9, 128, 8), (5, 64, 16, 4), (33, 257, 32, 16),
-    (700, 3000, 602, 64), (5000, 40000, 128, 8),
-    (900, 4000, 200, 94), (900, 4000, 200, 95), (3000, 9000, 130, 452),
-    (1000, 40000, 128, 8),
+def _sampled_rows(seeds, fanouts):
+    """Edge targets in the reference sampler's layout (seeds first, each
+    hop's nodes after, every frontier node taking ``f`` in-edges from the
+    next hop): most rows, and so whole row blocks, take no edge."""
+    rows, first, frontier = [], 0, seeds
+    for f in fanouts:
+        rows.append(np.repeat(np.arange(first, first + frontier), f))
+        first, frontier = first + frontier, frontier * f
+    return np.concatenate(rows).astype(np.int32), first + frontier
+
+
+def _shuffle_slots(perm, lrow, rng):
+    """Permute the slots of every row block: padding lands among the live
+    slots and a row's edges are no longer consecutive."""
+    order = np.argsort(rng.random(perm.shape), axis=1)
+    return (np.take_along_axis(perm, order, axis=1),
+            np.take_along_axis(lrow, order, axis=1))
+
+
+@pytest.mark.parametrize("rows,d,r_blk", [
+    ((17, 120), 8, 8), ((64, 9), 128, 8), ((5, 64), 16, 4),
+    ((33, 257), 32, 16), ((700, 3000), 602, 64), ((5000, 40000), 128, 8),
+    ((900, 4000), 200, 94), ((900, 4000), 200, 95), ((3000, 9000), 130, 452),
+    ((1000, 40000), 128, 8), ((300, 2000), 602, 452), ((50, 400), 3, 1),
+    ((100, 700), 1, 8), ((16, (3, 2)), 602, 8), ((16, (3, 2)), 130, 8),
+    ((64, (3, 2)), 128, 8),
 ])
+@pytest.mark.parametrize("layout", ["packed", "shuffled", "offset"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_segment_sum_kernel_matches_plain(cuda, n_rows, n_edges, d, r_blk,
+def test_segment_sum_kernel_matches_plain(cuda, rows, d, r_blk, layout,
                                           dtype):
     """Both accumulate in float32 and round once; the kernel sums each row
     in slot order, the plain version on the card by atomics in any order.
     float32: within 1e-5 of the row's sum of |x|; bfloat16: one ulp of the
-    result (2^-7 relative) plus that float32 slack."""
+    result (2^-7 relative) plus that float32 slack.
+
+    ``rows`` is (n_rows, n_edges) with uniform targets, or (seeds, fanouts)
+    in the sampler's layout (row blocks with no edge).  Layouts: the slots
+    as ``pack_blocks`` packs them; the same slots permuted within each block;
+    the payload a view one element past a 16-byte boundary."""
     rng = np.random.default_rng(0)
-    row = rng.integers(0, n_rows, size=n_edges).astype(np.int32)
+    if isinstance(rows[1], tuple):
+        row, n_rows = _sampled_rows(*rows)
+    else:
+        n_rows = rows[0]
+        row = rng.integers(0, n_rows, size=rows[1]).astype(np.int32)
+    n_edges = row.shape[0]
     perm, lrow, _ = pack_blocks(row, n_rows, r_blk=r_blk)
+    if layout == "shuffled":
+        perm, lrow = _shuffle_slots(perm, lrow, rng)
     data = torch.from_numpy(rng.normal(size=(n_edges, d))).to(cuda, dtype)
+    if layout == "offset":
+        buf = torch.empty(n_edges * d + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(n_edges, d)
+        view.copy_(data)
+        data = view
+        assert data.data_ptr() % 16 == data.element_size()
     perm = torch.from_numpy(perm.astype(np.int32)).to(cuda)
-    lrow = torch.from_numpy(lrow).to(cuda)
+    lrow = torch.from_numpy(np.ascontiguousarray(lrow)).to(cuda)
     before = kernels.launch_count("segment_sum")
     got = segment_sum_coo(data, perm, lrow, n_rows, r_blk=r_blk)
     torch.cuda.synchronize()

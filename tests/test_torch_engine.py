@@ -126,6 +126,34 @@ def test_sweep_matches_reference(schedule):
 
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
+@pytest.mark.parametrize("rule", ["degree_one", "weight_transfer",
+                                  "extended_single_edge"])
+def test_scattering_rule_matches_reference(name, rule):
+    """Each rule that scatters (the folds' weight adds, the EXCLUDED fills,
+    the fold-log appends) alone from random states where a few lanes fire
+    and most do not: the whole RedState is equal bit for bit, the nil
+    slot of ``w`` / ``status`` and the log's ``cap - 1`` slot included."""
+    _, jprob, tprob = _problems(name)
+    fired = logged = 0
+    for seed in (6, 8):
+        js = _mid_solve_state(jprob, seed)
+        ts = convert.red_state(js)
+        req = TE.RULES[rule].requires
+        want = JE.RULES[rule](js, jprob.aux, JE.compute_ctx(
+            js, jprob.aux, req, backend="jnp"))
+        got = TE.RULES[rule](ts, tprob.aux, TE.compute_ctx(
+            ts, tprob.aux, req, backend="torch"))
+        _assert_same(got, want, f"{name}/{seed}/{rule}")
+        changed = int((got.status != ts.status).sum())
+        assert changed < int((ts.status == TR.UNDECIDED).sum()) // 2
+        fired += changed
+        logged += int(got.log_n) - int(ts.log_n)
+    assert fired > 0, f"{name}/{rule}: no lane fired"
+    if rule != "extended_single_edge":
+        assert logged > 0, f"{name}/{rule}: nothing was logged"
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_heavy_vertex_matches_reference(name):
     """The exact sub-MWIS rule (2^K subset enumeration, int32 sums written
     without a matmul in the port) from random states."""

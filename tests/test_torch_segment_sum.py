@@ -136,3 +136,22 @@ def test_segment_sum_wrapper_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="expected all on the CPU"):
         tops.segment_sum_coo(data.to("meta"), perm, lrow, 4, r_blk=8)
     assert kernels.launch_count("segment_sum") == before
+
+
+@pytest.mark.parametrize("d,dtype,offset,vec", [
+    (602, torch.float32, 0, 2), (602, torch.bfloat16, 0, 2),
+    (128, torch.float32, 0, 4), (128, torch.bfloat16, 0, 4),
+    (130, torch.float32, 0, 2), (64, torch.float32, 0, 2),
+    (3, torch.float32, 0, 1), (1, torch.bfloat16, 0, 1),
+    (128, torch.float32, 1, 1), (256, torch.bfloat16, 1, 1),
+    (256, torch.bfloat16, 2, 2),
+])
+def test_segment_sum_lane_width(d, dtype, offset, vec):
+    """The columns a kernel lane reads at once: the widest of 4, 2, 1 that
+    divides the row, that the payload pointer (here a view ``offset``
+    elements into a fresh buffer) is aligned to, and that leaves no lane of
+    a 32-lane warp past a narrow row."""
+    buf = torch.zeros(4 * d + offset, dtype=dtype)
+    assert buf.data_ptr() % 16 == 0
+    data = buf[offset:offset + 4 * d].view(4, d)
+    assert tkernel._sum_vec(data) == vec
