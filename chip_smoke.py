@@ -17,7 +17,9 @@ continues):
                and ``embedding_bag`` on CUDA tensors (each launches its
                kernel) at the reference's ``bench_kernel_micro`` shapes,
                plus bfloat16 cases with many terms a row (40 on average)
-               and a bag (32), held against their plain versions;
+               and a bag (32), and ``common_neighbor_stats`` on windows in
+               the partition's layout (ascending, nil padding last) beside
+               random ones, held against their plain versions;
   5. main path — ``repro_torch.launch.mwis_run`` on RGG n = 2^20, p = 4
                (L ≈ 2^18, E ≈ 2^21 per PE), DisReduA, partitioned once:
                reduce/cheap-fused on the ``cuda`` backend, the same on the
@@ -335,8 +337,28 @@ def ops_at_micro_shapes(dev, seed: int) -> dict:
         rng.integers(0, V, size=E).astype(np.int32),
         rng.integers(0, V, size=E).astype(np.int32)))
     got, k = run_op("wedge_intersect", lambda: common_neighbor_stats(*args))
-    err = check_wedge(got, args, f"micro wedge_intersect V={V} E={E} D={D}")
+    tag = f"micro wedge_intersect V={V} E={E} D={D} random windows"
+    err = check_wedge(got, args, tag)
     rec["wedge_intersect"] = dict(launches=k, max_abs_err=err)
+    # the partition's layout: each window ascending, nil (the last vertex,
+    # active here so nil entries count) padding last; edges sorted by row
+    nil = V - 1
+    window = np.full((V, D), nil, dtype=np.int32)
+    for v, m in enumerate(rng.integers(0, D + 1, size=V)):
+        window[v, :m] = np.sort(rng.choice(nil, size=m, replace=False))
+    active = rng.integers(0, 2, size=V).astype(bool)
+    active[nil] = True
+    row, col = (rng.integers(0, V, size=E).astype(np.int32) for _ in "rc")
+    order = np.lexsort((col, row))
+    args = tuple(torch.from_numpy(a).to(dev) for a in (
+        window, rng.integers(0, 200, size=V).astype(np.int32), active,
+        row[order], col[order]))
+    got, k = run_op("wedge_intersect", lambda: common_neighbor_stats(*args))
+    tag = f"micro wedge_intersect V={V} E={E} D={D} sorted windows"
+    err = check_wedge(got, args, tag)
+    rec["wedge_intersect"]["launches"] += k
+    rec["wedge_intersect"]["max_abs_err"] = max(
+        err, rec["wedge_intersect"]["max_abs_err"])
 
     V, B, K_, D = 100_000, 8192, 4, 128
     table, idx, wgt = (torch.from_numpy(a).to(dev) for a in (

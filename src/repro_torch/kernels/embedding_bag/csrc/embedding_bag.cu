@@ -3,32 +3,44 @@
 // Replaces repro/kernels/embedding_bag/kernel.py:embedding_bag_fused, the
 // TPU kernel behind embedding_bag.  Same function:
 //     out[b, :] = sum_k wgt[b, k] * table[idx[b, k], :]
-// accumulated in float32 and written in the table's type.  Indices are
-// taken to be in range: the kernel does not clamp (as JAX's gather does) or
-// raise (as torch's does).
+// accumulated in float32, k = 0 .. K-1 in order, and written in the table's
+// type (one rounding).  Indices are taken to be in range: the kernel does
+// not clamp (as JAX's gather does) or raise (as torch's does).
 //
-// Layout: one warp per bag, eight bags per block; the ragged end of the
-// batch is masked (a warp past the last bag returns), where the TPU kernel
-// padded B to a multiple of its bag tile.  A table row is read as 16-byte
-// vectors, neighbouring lanes on neighbouring vectors.  When a row is
-// narrower than the warp (bfloat16 at D = 128 is 16 vectors), the warp
-// splits into groups that each take every (32 / width)-th lookup of the bag,
-// and the groups' partial sums meet by shuffles; wider rows are walked by
-// all 32 lanes.
+// Layout: a table row is read as 16-byte vectors (one element when the row
+// or the table is not 16-byte aligned), neighbouring lanes on neighbouring
+// vectors; the ragged end of the batch is masked, where the TPU kernel
+// padded B to a multiple of its bag tile.  Two paths, by the row's width in
+// vectors (n_vec):
+//   narrow (n_vec <= 16, e.g. bfloat16 at D = 128): the warp splits into
+//     32 / n_vec lane groups and each group owns whole bags, several at a
+//     time; a lane sums its column of each bag, loading the bags' indices
+//     and weights ahead and several lookups a bag at once, so that it keeps
+//     four row loads in flight (kBagsPerGroup x kUnroll; at K = 1,
+//     kSingleHotBags bags of one lookup); no lane waits on another and no
+//     shuffle is needed;
+//   wide (n_vec > 16, e.g. float32 at D = 128): one warp per bag, lanes
+//     walking the row's vectors with stride 32.
 //
 // Bound: bytes.  Each lookup must read one table row (D x 2 or 4 bytes)
 // and the bag's idx and wgt, and each bag writes one row; there are two
 // flops per element read.  What the design does about it: every row is read
 // once, as whole 16-byte vectors, straight from device memory into
-// registers (the TPU kernel's per-row DMA); the gathered [B, K, D] rows of
-// the plain version are never written; the weighted sum stays in registers.
+// registers (the TPU kernel's per-row DMA), with several independent loads
+// in flight per lane to cover the latency of random rows; the gathered
+// [B, K, D] rows of the plain version are never written; the weighted sum
+// stays in registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;  // bags per block
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 4;  // warps per block
+// narrow rows: the bags a lane group takes at once and the lookups of a bag
+// loaded together, for single-hot bags (K = 1) and for the others
+constexpr int kSingleHotBags = 4;
+constexpr int kBagsPerGroup = 2;
+constexpr int kUnroll = 2;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -48,57 +60,124 @@ template <typename T, int VEC> struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kWarps * 32) embedding_bag_kernel(
+// Narrow rows: the lane groups of the grid, numbered in order, own BAGS
+// consecutive bags each; lane c of a group (c < n_vec) sums column vector c
+// of each of its bags, UNROLL lookups a bag at a time.
+template <typename T, int VEC, int BAGS, int UNROLL>
+__global__ void __launch_bounds__(kWarps * 32) embedding_bag_narrow(
     const T* __restrict__ table, const int* __restrict__ idx,
     const float* __restrict__ wgt, T* __restrict__ out, int n_bags,
-    int k_bag, int d) {
+    int k_bag, int n_vec) {
+  const int lane = threadIdx.x & 31;
+  const int groups = 32 / n_vec;  // lane groups a warp
+  const int g = lane / n_vec;
+  const int c = lane - g * n_vec;
+  if (g >= groups) return;  // lanes left over: n_vec does not divide 32
+  const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long first = (warp * groups + g) * BAGS;
+  const Vec<T, VEC>* rows = reinterpret_cast<const Vec<T, VEC>*>(table);
+  Vec<T, VEC>* dst = reinterpret_cast<Vec<T, VEC>*>(out);
+  float acc[BAGS][VEC];
+#pragma unroll
+  for (int j = 0; j < BAGS; ++j)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[j][i] = 0.f;
+  for (int k0 = 0; k0 < k_bag; k0 += UNROLL) {
+    int row[BAGS][UNROLL];
+    float w[BAGS][UNROLL];
+#pragma unroll
+    for (int j = 0; j < BAGS; ++j)
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const long long b = first + j;
+        const bool live = b < n_bags && k0 + u < k_bag;
+        row[j][u] = live ? idx[b * k_bag + k0 + u] : -1;
+        w[j][u] = live ? wgt[b * k_bag + k0 + u] : 0.f;
+      }
+    Vec<T, VEC> x[BAGS][UNROLL];
+#pragma unroll
+    for (int j = 0; j < BAGS; ++j)
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (row[j][u] >= 0) x[j][u] = rows[(long long)row[j][u] * n_vec + c];
+#pragma unroll
+    for (int j = 0; j < BAGS; ++j)
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (row[j][u] >= 0) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            acc[j][i] += w[j][u] * to_f32(x[j][u].v[i]);
+        }
+  }
+#pragma unroll
+  for (int j = 0; j < BAGS; ++j) {
+    const long long b = first + j;
+    if (b >= n_bags) break;
+    Vec<T, VEC> y;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) y.v[i] = from_f32<T>(acc[j][i]);
+    dst[b * n_vec + c] = y;
+  }
+}
+
+// Wide rows: one warp per bag, lane c sums column vectors c, c + 32, ...
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWarps * 32) embedding_bag_wide(
+    const T* __restrict__ table, const int* __restrict__ idx,
+    const float* __restrict__ wgt, T* __restrict__ out, int n_bags,
+    int k_bag, int n_vec) {
   const int lane = threadIdx.x & 31;
   const long long b = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (b >= n_bags) return;  // the whole warp: b is the same for its lanes
-  const int n_vec = d / VEC;  // vectors per row
-  // width lanes cover one row (n_vec when it divides 32); groups of them
-  // take every groups-th lookup
-  const int width = (n_vec < 32 && 32 % n_vec == 0) ? n_vec : 32;
-  const int groups = 32 / width;
-  const int g = lane / width;
   const int* bag_idx = idx + b * k_bag;
   const float* bag_wgt = wgt + b * k_bag;
   const Vec<T, VEC>* rows = reinterpret_cast<const Vec<T, VEC>*>(table);
-  Vec<T, VEC>* dst = reinterpret_cast<Vec<T, VEC>*>(out + b * d);
-  for (int c = lane % width; c < n_vec; c += width) {
+  Vec<T, VEC>* dst = reinterpret_cast<Vec<T, VEC>*>(out + b * n_vec * VEC);
+  for (int c = lane; c < n_vec; c += 32) {
     float acc[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
 #pragma unroll 4
-    for (int k = g; k < k_bag; k += groups) {
+    for (int k = 0; k < k_bag; ++k) {
       const Vec<T, VEC> x = rows[(long long)bag_idx[k] * n_vec + c];
       const float w = bag_wgt[k];
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[i] += w * to_f32(x.v[i]);
     }
-    // groups > 1 only when every lane runs exactly one c: all lanes shuffle
-    for (int off = width; off < 32; off <<= 1) {
+    Vec<T, VEC> y;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        acc[i] += __shfl_xor_sync(kFull, acc[i], off);
-    }
-    if (g == 0) {
-      Vec<T, VEC> y;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) y.v[i] = from_f32<T>(acc[i]);
-      dst[c] = y;
-    }
+    for (int i = 0; i < VEC; ++i) y.v[i] = from_f32<T>(acc[i]);
+    dst[c] = y;
   }
 }
 
 template <typename T, int VEC>
 int launch(const void* table, const void* idx, const void* wgt, void* out,
            int n_bags, int k_bag, int d, cudaStream_t stream) {
-  const int blocks = (n_bags + kWarps - 1) / kWarps;
-  embedding_bag_kernel<T, VEC><<<blocks, kWarps * 32, 0, stream>>>(
-      (const T*)table, (const int*)idx, (const float*)wgt, (T*)out, n_bags,
-      k_bag, d);
+  const int n_vec = d / VEC;  // vectors per row
+  if (n_vec <= 16) {
+    // single-hot bags load no lookup ahead (the registers of kUnroll rows
+    // would only cost resident warps) and take more bags at once instead
+    const int bags = k_bag == 1 ? kSingleHotBags : kBagsPerGroup;
+    const long long per_block = (long long)kWarps * (32 / n_vec) * bags;
+    const unsigned blocks = (unsigned)((n_bags + per_block - 1) / per_block);
+    if (k_bag == 1)
+      embedding_bag_narrow<T, VEC, kSingleHotBags, 1>
+          <<<blocks, kWarps * 32, 0, stream>>>(
+              (const T*)table, (const int*)idx, (const float*)wgt, (T*)out,
+              n_bags, k_bag, n_vec);
+    else
+      embedding_bag_narrow<T, VEC, kBagsPerGroup, kUnroll>
+          <<<blocks, kWarps * 32, 0, stream>>>(
+              (const T*)table, (const int*)idx, (const float*)wgt, (T*)out,
+              n_bags, k_bag, n_vec);
+  } else {
+    const int blocks = (n_bags + kWarps - 1) / kWarps;
+    embedding_bag_wide<T, VEC><<<blocks, kWarps * 32, 0, stream>>>(
+        (const T*)table, (const int*)idx, (const float*)wgt, (T*)out, n_bags,
+        k_bag, n_vec);
+  }
   return (int)cudaGetLastError();
 }
 

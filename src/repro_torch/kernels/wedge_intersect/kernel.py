@@ -2,7 +2,9 @@
 
 ``wedge_intersect`` is the Hopper counterpart of
 ``repro/kernels/wedge_intersect/kernel.py:wedge_intersect``
-(``csrc/wedge_intersect.cu`` says how it is laid out and what bounds it).
+(``csrc/wedge_intersect.cu`` says how it is laid out and what bounds it;
+``tools/wedge_intersect_variants.py`` times it against the designs it was
+chosen over).
 It takes what ``common_neighbor_stats`` takes — the ``[V, D]`` windows, the
 vertex weights and activity and the edge list — and gathers W(u), W(v), the
 weights and the activity inside the kernel.  CUDA tensors only (int32, the
@@ -29,12 +31,16 @@ LIBS = {"wedge_intersect": ("wedge_intersect",
 #: Widest window the kernel takes (its registers hold two rows).
 MAX_D = 32
 
+#: The C launcher's argument types (pointers: window, weights, active, row,
+#: col, C, K; then E, D, vec16 and the stream).
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_void_p]
+
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = load(*LIBS["wedge_intersect"]).wedge_intersect_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 

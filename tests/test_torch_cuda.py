@@ -189,6 +189,72 @@ def _wedge_case(rng, n_vertices, n_edges, d):
             torch.from_numpy(col.astype(np.int32)))
 
 
+def layout_windows(rng, kind, n_vertices, d):
+    """[V, D] int32 windows of one layout; the last vertex plays the nil
+    slot (shared with the CPU parity tests, ``tests/test_torch_wedge.py``).
+
+    ``sorted``: ascending distinct entries, nil padding last (the
+    partition's layout); ``unsorted``: the same rows shuffled;
+    ``duplicates``: entries from a range of 5, so most repeat;
+    ``all_nil``: every third row nil only, the rest sorted."""
+    nil = n_vertices - 1
+    window = np.full((n_vertices, d), nil, dtype=np.int32)
+    for v in range(n_vertices):
+        if kind == "duplicates":
+            window[v] = rng.integers(0, 5, size=d)
+            continue
+        if kind == "all_nil" and v % 3 == 0:
+            continue
+        m = int(rng.integers(0, d + 1))
+        window[v, :m] = np.sort(rng.choice(nil, size=m, replace=False))
+        if kind == "unsorted":
+            rng.shuffle(window[v])
+    return window
+
+
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "duplicates",
+                                  "all_nil"])
+@pytest.mark.parametrize("d", [4, 5, 8, 16, 32])
+@pytest.mark.parametrize("n_edges", [1, 255, 4099])
+def test_wedge_intersect_kernel_window_layouts(cuda, kind, d, n_edges):
+    """Sorted (the partition's layout), unsorted, duplicate-heavy and
+    nil-only windows, the nil slot active so nil entries count where they
+    match, at edge counts that fill no block exactly: exact."""
+    rng = np.random.default_rng(d * 7 + n_edges)
+    n_vertices = 300
+    active = rng.integers(0, 2, size=n_vertices).astype(bool)
+    active[-1] = True
+    args = (torch.from_numpy(layout_windows(rng, kind, n_vertices, d)),
+            torch.from_numpy(rng.integers(0, 200, size=n_vertices)
+                             .astype(np.int32)),
+            torch.from_numpy(active),
+            torch.from_numpy(rng.integers(0, n_vertices, size=n_edges)
+                             .astype(np.int32)),
+            torch.from_numpy(rng.integers(0, n_vertices, size=n_edges)
+                             .astype(np.int32)))
+    got = common_neighbor_stats(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    for g, w in zip(got, common_neighbor_stats_ref(*args)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("p,window_cap", [(1, 16), (4, 16), (4, 8), (4, 32)])
+def test_wedge_intersect_kernel_on_a_partition(cuda, p, window_cap):
+    """The union problem of a partitioned RGG (sorted windows, nil padding
+    last, edges sorted by row), all vertices active and the nil slots
+    too: exact."""
+    g = gen.rgg2d(3000, avg_deg=10, seed=5)
+    pg = part.partition_graph(g, p, window_cap=window_cap)
+    prob = D.build_union_problem(pg, "torch", device="cpu")
+    aux = prob.aux
+    active = torch.ones(aux.window.shape[0], dtype=torch.bool)
+    args = (aux.window, prob.w0, active, aux.row, aux.col)
+    got = common_neighbor_stats(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    for g_, w in zip(got, common_neighbor_stats_ref(*args)):
+        assert torch.equal(g_.cpu(), w)
+
+
 @pytest.mark.parametrize("n_vertices,n_edges,d", [
     (51, 100, 8), (51, 513, 16), (51, 7, 4), (40, 300, 7), (30, 200, 32),
     (1000, 20000, 16), (200, 1000, 12),
@@ -205,7 +271,7 @@ def test_wedge_intersect_kernel_matches_plain(cuda, n_vertices, n_edges, d):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("d", [4, 8, 16, 32])
+@pytest.mark.parametrize("d", [4, 5, 8, 16, 32])
 def test_wedge_intersect_kernel_takes_an_unaligned_window(cuda, d):
     """A window that starts 4 bytes past a 16-byte boundary (a view at an
     odd element) takes the element-wise reads, not the 16-byte vectors."""
@@ -230,6 +296,10 @@ def test_embedding_bag_kernel_matches_plain(cuda, V, B, K_, D, dtype):
     1e-5 (rtol and atol); bfloat16: one ulp of the result (2^-7 relative)
     on top of 1e-5 of the bag's sum of |w x|, which a kernel adding in
     bfloat16 would exceed at K = 32."""
+    _check_embedding_bag(cuda, V, B, K_, D, dtype)
+
+
+def _check_embedding_bag(cuda, V, B, K_, D, dtype):
     rng = np.random.default_rng(2)
     table = torch.from_numpy(rng.normal(size=(V, D))).to(cuda, dtype)
     idx = torch.from_numpy(rng.integers(0, V, size=(B, K_)).astype(np.int32))
@@ -247,6 +317,16 @@ def test_embedding_bag_kernel_matches_plain(cuda, V, B, K_, D, dtype):
                                   wgt.abs().to(cuda))
         tol = 1e-5 * scale + want.abs() * 2.0 ** -7
         assert bool(((got.float() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("K_", [1, 2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("D", [8, 16, 24, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_kernel_bag_sizes(cuda, K_, D, dtype):
+    """Narrow rows (lane groups owning whole bags) and wide ones (a
+    warp a bag) at bags of 1 to 7 lookups, over a batch of 1,001 bags, a
+    multiple of no block's bags; tolerances as above."""
+    _check_embedding_bag(cuda, 5000, 1001, K_, D, dtype)
 
 
 def test_new_kernels_reject_other_dtypes(cuda):

@@ -40,6 +40,20 @@ DTYPES = [(jnp.float32, torch.float32, 1e-5), (jnp.bfloat16, torch.bfloat16,
 ])
 @pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
 def test_embedding_bag_matches_reference(V, B, K, D, jdt, tdt, tol):
+    _check_against_reference(V, B, K, D, jdt, tdt, tol)
+
+
+# the widths and bag sizes of the kernel's two paths: rows of 8 to 128
+# elements (narrow lane groups at 1-16 vectors, a warp a bag above), bags of
+# 1 (single-hot, as dlrm looks up) to 7 lookups
+@pytest.mark.parametrize("K", [1, 2, 3, 7])
+@pytest.mark.parametrize("D", [8, 16, 64, 128])
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+def test_embedding_bag_widths_and_bag_sizes(K, D, jdt, tdt, tol):
+    _check_against_reference(300, 37, K, D, jdt, tdt, tol)
+
+
+def _check_against_reference(V, B, K, D, jdt, tdt, tol):
     rng = np.random.default_rng(2)
     jtable = jnp.asarray(rng.normal(size=(V, D)), jdt)
     idx = rng.integers(0, V, size=(B, K)).astype(np.int32)

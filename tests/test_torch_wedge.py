@@ -24,6 +24,7 @@ from repro_torch.kernels.wedge_intersect.ops import common_neighbor_stats
 from repro_torch.kernels.wedge_intersect.ref import (
     common_neighbor_stats_ref, wedge_intersect_ref,
 )
+from tests.test_torch_cuda import layout_windows
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -86,6 +87,53 @@ def test_common_neighbor_stats_matches_pallas_wrapper(n_vertices, n_edges, d):
     got, want = _stats_both(*args)
     _equal(got, want)
     _equal(got, common_neighbor_stats_ref(*map(torch.from_numpy, args)))
+
+
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "duplicates",
+                                  "all_nil"])
+@pytest.mark.parametrize("d", [4, 5, 8, 16, 32])
+def test_common_neighbor_stats_window_layouts(kind, d):
+    """Every window layout the JAX function takes — sorted with nil
+    padding last, unsorted, duplicate-heavy, rows of nil only — with the
+    nil slot active (so nil entries count where they match): the port ==
+    JAX through the Pallas kernel == the plain version."""
+    rng = np.random.default_rng(d)
+    n_vertices, n_edges = 40, 150
+    weights = rng.integers(0, 200, size=n_vertices).astype(np.int32)
+    active = rng.integers(0, 2, size=n_vertices).astype(bool)
+    active[-1] = True
+    args = (layout_windows(rng, kind, n_vertices, d), weights, active,
+            rng.integers(0, n_vertices, size=n_edges).astype(np.int32),
+            rng.integers(0, n_vertices, size=n_edges).astype(np.int32))
+    got, want = _stats_both(*args)
+    _equal(got, want)
+    _equal(got, common_neighbor_stats_ref(*map(torch.from_numpy, args)))
+    assert int(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_partition_windows_are_sorted_with_nil_last(p):
+    """The layout the kernel's design and ``chip_smoke.py``'s merge bound
+    rely on: every window row of ``partition_graph`` (and of the union
+    problem, whose per-PE offsets are monotone) holds its real entries in
+    strictly ascending order, then only nil, the row's largest index."""
+    g = tgen.rgg2d(400, avg_deg=9, seed=3)
+    pg = tpart.partition_graph(g, p, window_cap=8)
+    nil = pg.V - 1
+    prob = TD.build_union_problem(pg, "torch", device="cpu")
+    windows = [(w, nil) for w in pg.window] + [
+        (prob.aux.window.numpy()[i * pg.V:(i + 1) * pg.V], i * pg.V + nil)
+        for i in range(p)]
+    padded = 0
+    for window, pe_nil in windows:
+        real = window != pe_nil
+        # nil padding last: no real entry after a nil one
+        assert not (~real[:, :-1] & real[:, 1:]).any()
+        step = np.diff(window.astype(np.int64), axis=1)
+        assert (step[real[:, 1:]] > 0).all()        # real entries ascending
+        assert (window[real] < pe_nil).all()        # nil is the largest
+        padded += int((~real[:pg.L]).any(1).sum())
+    assert padded > 0
 
 
 @pytest.mark.parametrize("p,window_cap", [(1, 8), (2, 8), (3, 16)])
