@@ -48,7 +48,18 @@ continues):
                128, float32 and bfloat16;
  13. embedding_bag at size — dlrm-mlperf's largest table (39,979,771 x 128)
                at ``serve_bulk`` B = 262,144, K = 1 and 4, float32 and then
-               bfloat16.
+               bfloat16;
+ 14. serve   — ``repro_torch.launch.serve --arch mwis`` on the card: the
+               reference's stream of 192 requests over the three serve
+               cells (4 per topology, up to serve_m: L 1,024, E 16,384),
+               batches of 64, ``rg`` on ``cuda`` (verify full) and on
+               ``torch`` (must agree per request bit for bit), ``greedy`` on
+               ``cuda`` (each result the sequential priority greedy's),
+               ``rnp`` on ``cuda`` on 48 requests (its host peel loop);
+               0 fallbacks, 0 verify failures, ``segment_fused`` launched
+               and the three off-path kernels not; then the batched kernel
+               against its plain version on a real stacked serve_m x 64
+               chunk, timed.
 
 Phases 4, 7, 12 and 13 reset each op's launch count just before its calls
 and read it just after (it must be > 0), then time the kernel, its plain
@@ -588,32 +599,30 @@ def reduce_problem(args, pg):
     return D.build_union_problem(pg, cfg.backend, cfg.r_blk, args.device), cfg
 
 
-def profile_reduce(prob, cfg) -> None:
-    """Phase 11: where the device time goes — the reduce run once more under
-    torch.profiler; device time by kernel and the device's busy share of
-    the run's wall time (union build excluded)."""
+def device_profile(label: str, fn, top: int = 15) -> dict:
+    """Run ``fn`` once under torch.profiler: device time by kernel and by
+    launching op, and the device's busy share of the call's wall time.
+    Returns the aten ops by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core import distributed as D
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        _, rounds = D.disredu_union(prob, cfg)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_time_total", 0) > 0
             and e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in rows)
-    phase("profile", f"reduce/cheap-fused/cuda rounds={rounds} "
-                     f"wall={wall:.3f}s device_busy={busy_us / 1e6:.3f}s "
+    phase("profile", f"{label} wall={wall:.3f}s "
+                     f"device_busy={busy_us / 1e6:.3f}s "
                      f"busy_share={busy_us / 1e6 / wall:.4f}")
     if not rows:
         phase("profile", "the profiler saw no device time: not measured")
-    for e in sorted(rows, key=lambda e: -e.device_time_total)[:15]:
+    for e in sorted(rows, key=lambda e: -e.device_time_total)[:top]:
         phase("profile", f"{e.device_time_total / 1e3:10.3f} ms "
                          f"x{e.count:<6d} {e.key[:90]}")
     # the same device time by the torch op that launched it (an op's time
@@ -621,11 +630,20 @@ def profile_reduce(prob, cfg) -> None:
     ops = [e for e in prof.key_averages()
            if e.key.startswith("aten::")
            and getattr(e, "device_time_total", 0) > 0]
-    for e in sorted(ops, key=lambda e: -e.device_time_total)[:15]:
+    for e in sorted(ops, key=lambda e: -e.device_time_total)[:top]:
         phase("profile", f"op {e.device_time_total / 1e3:10.3f} ms "
                          f"x{e.count:<6d} {e.key}")
+    return {e.key: e for e in ops}
+
+
+def profile_reduce(prob, cfg) -> None:
+    """Phase 11: where the device time goes — the reduce run once more under
+    torch.profiler (union build excluded)."""
+    from repro_torch.core import distributed as D
+
+    by_key = device_profile("reduce/cheap-fused/cuda",
+                            lambda: D.disredu_union(prob, cfg))
     # the ops the rules' scatters and the exchange's board fills go through
-    by_key = {e.key: e for e in ops}
     for key in ("aten::index_add_", "aten::scatter_reduce_",
                 "aten::index_put_", "aten::nonzero"):
         e = by_key.get(key)
@@ -783,6 +801,194 @@ def embedding_bag_at_size(dev, seed: int, reps: int) -> dict:
     return out
 
 
+def serve_run(opts, label: str, need_launches: bool, **over) -> dict:
+    """One pass of ``repro_torch.launch.serve``'s path (its warm-up, timed
+    and weight passes, its printed lines) on the card, launch counts reset
+    just before and read just after; fails on a fallback, a verify failure,
+    a failed request or a kernel launch off the serving path."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import serve as serve_cli
+
+    argv = ["--arch", "mwis", "--batch", "64", "--device", "cuda",
+            "--seed", str(opts.seed)]
+    for k, v in over.items():
+        argv += [f"--{k.replace('_', '-')}", str(v)]
+    args = serve_cli.build_parser().parse_args(argv)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    out = serve_cli.serve_mwis(args)
+    torch.cuda.synchronize()
+    out["seconds"] = time.time() - t0
+    counts = launch_counts()
+    out["launches"] = counts.pop("segment_fused")
+    st = out["service"].stats
+    tp = out["throughput"]
+    phase("serve", f"{label}: {args.algo}/{args.backend} "
+                   f"requests={tp['instances']} "
+                   f"inst_per_s={tp['instances_per_sec']} "
+                   f"batches={tp['batches']} p50_ms={tp['p50_ms']} "
+                   f"p99_ms={tp['p99_ms']} max_ms={tp['max_ms']} "
+                   f"stage_p50_ms={st['stage_p50_ms']} "
+                   f"cache_hits={st['cache_hits']} "
+                   f"cache_misses={st['cache_misses']} "
+                   f"e_blk_hwm={st['e_blk_hwm']} "
+                   f"kernel_launches={out['launches']} "
+                   f"seconds={out['seconds']:.2f}")
+    if st["fallbacks"] or st["backend_active"] != args.backend:
+        fail(f"{label}: the service left its backend ({st['events']})")
+    if st["verify_failures"] or any(not r.ok for r in out["results"]):
+        fail(f"{label}: a request failed or did not verify")
+    if need_launches and out["launches"] <= 0:
+        fail(f"{label}: the cuda backend never launched the kernel")
+    if not need_launches and out["launches"] != 0:
+        fail(f"{label}: the kernel launched on a non-cuda backend")
+    if any(counts.values()):
+        fail(f"{label}: a kernel off the serving path launched: {counts}")
+    return out
+
+
+def batched_kernel_at_serve_m(svc, reqs, reps: int) -> dict:
+    """The batched kernel on a real stacked chunk: the service's first 64
+    serve_m requests stacked as it stacks them (its cached problems, its
+    E_BLK high-water mark), the payload columns of the first sweep; exact
+    against the plain version, timed beside its bound and scatter_reduce
+    over the flat union rows."""
+    import torch
+
+    from repro_torch.core import engine as E
+    from repro_torch.core import rules as R
+    from repro_torch.kernels.segment_coo import kernel as K
+    from repro_torch.kernels.segment_coo.ops import segment_fused_plain
+
+    cell = next(c for c in svc.cells if c.name == "serve_m")
+    idxs = [i for i, g in enumerate(reqs)
+            if g.n > 256 and g.num_directed_edges <= cell.E][:64]
+    topos, _ = svc._pack_requests(cell, idxs, reqs, [None] * len(reqs),
+                                  "cuda")
+    rec = dict(pack_ms=0.0, transfer_ms=0.0)
+    prob = svc._stage_chunk(cell, topos, "cuda", rec).prob
+    plan, aux = prob.plan, prob.aux
+    state = R.init_state(prob.w0, prob.is_local, prob.is_ghost)
+    req = E.schedule_requires(E.SCHEDULES[cell.schedule])
+    _, _, dsum, dmax, dor = E.ctx_payloads(state, aux, req,
+                                           window_bits=True, plan=plan)
+    batch, n_blocks, e_blk = plan.edge_perm.shape
+    V = prob.V
+    kw = dict(r_blk=plan.r_blk, data_sum=dsum, data_max=dmax, data_or=dor,
+              or_nbits=aux.window.shape[1])
+    got = K.segment_fused(plan.edge_perm, plan.lrow, V, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, segment_fused_plain(plan.edge_perm, plan.lrow,
+                                               V, **kw))
+    if err:
+        fail(f"batched kernel != plain version at serve_m x {batch} ({err})")
+    row = aux.row.long()
+
+    def library():  # yardstick only: scatter_reduce over the union rows
+        s_ = torch.zeros((batch * V, dsum.shape[1]), dtype=torch.int32,
+                         device=row.device)
+        m_ = torch.full((batch * V, dmax.shape[1]),
+                        torch.iinfo(torch.int32).min, dtype=torch.int32,
+                        device=row.device)
+        return (s_.scatter_reduce_(0, row[:, None].expand_as(dsum), dsum,
+                                   "sum"),
+                m_.scatter_reduce_(0, row[:, None].expand_as(dmax), dmax,
+                                   "amax"))
+
+    lib = library()
+    torch.cuda.synchronize()
+    if not (torch.equal(lib[0], got[0]) and torch.equal(lib[1], got[1])):
+        fail("scatter_reduce yardstick disagrees with the batched kernel")
+    n_edges = dsum.shape[0]
+    live = int((plan.lrow < plan.r_blk).sum())
+    real = int((aux.gid[row] >= 0).sum())
+    cols = dsum.shape[1] + dmax.shape[1] + dor.shape[1]
+    phase("serve-kernel", f"serve_m x {batch}: V={V} n_blocks={n_blocks} "
+                          f"thread_blocks={batch * n_blocks} E_BLK={e_blk} "
+                          f"slots={batch * n_blocks * e_blk} "
+                          f"live_slots={live} real_edges={real} "
+                          f"edge_rows={n_edges} out_rows={batch * V} "
+                          f"payload_cols={cols} max_abs_err={err} "
+                          f"(tolerance 0, int32)")
+    # least bytes and operations as in phase 6: every plan slot's lrow,
+    # each live slot's edge id, the payloads once, the outputs once
+    t = timings("serve-kernel", lambda: K.segment_fused(
+                    plan.edge_perm, plan.lrow, V, **kw),
+                lambda: segment_fused_plain(plan.edge_perm, plan.lrow, V,
+                                            **kw),
+                library, reps,
+                4 * (batch * n_blocks * e_blk + live + n_edges * cols
+                     + batch * V * cols),
+                live * cols, "int32")
+    # the reduction's own work, without the plan's padding slots: a live
+    # slot's edge id and row, the payloads, the outputs
+    live_bytes = 4 * (2 * live + n_edges * cols + batch * V * cols)
+    live_ms, live_by = bound(live_bytes, live * cols, "int32")
+    phase("serve-kernel", f"bound without padding slots: "
+                          f"bound_live_ms={live_ms:.5f} ({live_by}: "
+                          f"{live_bytes} B) "
+                          f"bound_live/kernel={live_ms / t['ms']:.4f}")
+    return dict(t, max_abs_err=err)
+
+
+def serve_row(rec: dict) -> dict:
+    """The kernels line's row of the batched ``segment_fused`` (the same
+    source, its batch grid axis) at serve_m x 64."""
+    from repro_torch.kernels.segment_coo import kernel as K
+
+    return dict(
+        name="segment_fused_batched", route="cuda",
+        source=str(K.LIBS["segment_fused"][1][0].relative_to(ROOT)),
+        replaces=REPLACES["segment_fused"],
+        **{key: rec[key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+    )
+
+
+def serve_phase(opts) -> dict:
+    """Phase 14: the serving path on the card (see the module docstring);
+    returns the batched kernel's record with the serve runs' launches."""
+    import numpy as np
+
+    from repro_torch.core import sequential as seq
+
+    t0 = time.time()
+    rg = serve_run(opts, "rg cuda", True, algo="rg", backend="cuda",
+                   requests=192, verify="full")
+    ref = serve_run(opts, "rg torch", False, algo="rg", backend="torch",
+                    requests=192)
+    for i, (a, b) in enumerate(zip(rg["results"], ref["results"])):
+        if a.weight != b.weight or not np.array_equal(a.members, b.members):
+            fail(f"serve: cuda and torch backends disagree on request {i}")
+    phase("serve", "rg cuda == torch backend: members and weight of all "
+                   f"{len(rg['results'])} requests identical")
+    gr = serve_run(opts, "greedy cuda", True, algo="greedy", backend="cuda",
+                   requests=192, verify="full")
+    for i, (g, r) in enumerate(zip(gr["requests"], gr["results"])):
+        w_seq, m_seq = seq.solve_greedy(g)
+        if r.weight != w_seq or not np.array_equal(r.members, m_seq):
+            fail(f"serve: greedy request {i} != sequential priority greedy")
+    phase("serve", f"greedy == sequential on all {len(gr['results'])} "
+                   f"requests (total weight "
+                   f"{sum(r.weight for r in gr['results'])})")
+    rnp = serve_run(opts, "rnp cuda", True, algo="rnp", backend="cuda",
+                    requests=48, verify="full")
+    # where a warm batch's time goes: the stream's first 64 requests (about
+    # 21 of each cell, three chunks) once more on rg / cuda
+    svc, first = rg["service"], rg["requests"][:64]
+    device_profile("serve rg/cuda, one batch of 64 (3 chunks)",
+                   lambda: svc.solve_batch(first), top=8)
+    kern = batched_kernel_at_serve_m(rg["service"], rg["requests"],
+                                     opts.reps)
+    kern["launches"] = rg["launches"] + gr["launches"] + rnp["launches"]
+    phase("serve", f"phase seconds={time.time() - t0:.1f}")
+    return kern
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1 << 20,
@@ -889,6 +1095,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     sfull = segment_sum_at_size(dev, opts.seed, opts.reps)
     efull = embedding_bag_at_size(dev, opts.seed, opts.reps)
+    sk = serve_phase(opts)
 
     kfull.update(launches=launches,
                  max_abs_err=max(err, kfull["max_abs_err"]))
@@ -906,6 +1113,7 @@ def main() -> None:
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
     ) for name, (_, sources) in libs.items()]
+    rows.append(serve_row(sk))
     phase("done", f"total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

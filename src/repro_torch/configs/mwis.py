@@ -1,0 +1,60 @@
+"""mwis — the serving and descent shape cells of the paper's workload.
+
+A copy of the ``kind="serve"`` and ``kind="descent"`` rows of the
+reference's ``MWIS_SHAPES`` (``repro/configs/base.py``) and of its serving
+helpers (``repro/configs/mwis.py``); the reference module imports JAX, so
+the port keeps its own copy instead of importing it.
+
+Serving cells (MWIS-as-a-service) are the single-PE buckets the batched
+front end (:mod:`repro_torch.core.serve`) pads small and medium instances
+into: an incoming instance lands in the smallest cell with ``L >= n`` and
+``E >= 2m``.  G/B/S are the min_pad floors (p=1 has no halo); D is the
+serve window cap; ``seg_blk`` fixes the blocked-ELL row-block height per
+cell (a batch shares one ``r_blk``) and ``e_blk`` floors the shared edge
+budget (the serving layer grows it as a high-water mark).
+The reference's multi-device knobs (``serve_devices``, ``pipeline`` and
+``serve_knobs``) are left out: the port serves on one card, synchronously
+(ROADMAP Queue 1 item 10).
+Descent cells are the rungs above ``serve_m`` that the staged solver
+re-packs onto (not ported yet).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+MWIS_SHAPES: Dict[str, Dict[str, Any]] = {
+    "serve_xs": dict(kind="serve", L=64, E=1024, G=4, B=4, S=4, D=8,
+                     Dc=4, schedule="cheap-fused",
+                     seg_blk=dict(r_blk=8, e_blk=64)),
+    "serve_s": dict(kind="serve", L=256, E=4096, G=4, B=4, S=4, D=8,
+                    Dc=4, schedule="cheap-fused",
+                    seg_blk=dict(r_blk=16, e_blk=160)),
+    "serve_m": dict(kind="serve", L=1024, E=16384, G=4, B=4, S=4, D=8,
+                    Dc=4, schedule="cheap-fused",
+                    seg_blk=dict(r_blk=32, e_blk=320)),
+    "descent_l": dict(kind="descent", L=4096, E=65536, G=64, B=64, S=64,
+                      D=8, Dc=4, schedule="cheap-fused",
+                      seg_blk=dict(r_blk=32, e_blk=512)),
+    "descent_xl": dict(kind="descent", L=16384, E=262144, G=128, B=128,
+                       S=128, D=8, Dc=4, schedule="cheap-fused",
+                       seg_blk=dict(r_blk=32, e_blk=1024)),
+}
+
+#: Static batch-size buckets of the serving layer: a request batch is
+#: padded up to the smallest admissible size.
+MWIS_SERVE_BATCH_SIZES = (1, 4, 16, 64)
+
+
+def rule_schedule(shape_name: str) -> str:
+    """The named rule schedule a shape cell reduces with."""
+    return MWIS_SHAPES[shape_name].get("schedule", "cheap-fused")
+
+
+def serve_cell_names() -> tuple:
+    """The single-PE serving buckets (kind="serve"), in ascending size
+    order — the bucket table of the batched front end."""
+    cells = [(name, meta) for name, meta in MWIS_SHAPES.items()
+             if meta.get("kind") == "serve"]
+    cells.sort(key=lambda kv: (kv[1]["L"], kv[1]["E"]))
+    return tuple(name for name, _ in cells)

@@ -17,7 +17,7 @@ reference ``lax.while_loop``'s trip count.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -104,6 +104,87 @@ def build_union_problem(
         is_local=aux.is_local,
         is_ghost=t(pg.is_ghost.reshape(-1)),
         aux=aux, halo=X.make_halo(pg, dev), p=p, V=V, plan=plan,
+    )
+
+
+def stack_problems(probs: Sequence[UnionProblem],
+                   e_blk: Optional[int] = None) -> UnionProblem:
+    """B single-PE problems of one serve cell → one p=B union problem.
+
+    The union layout is already a batch axis: PE b owns the block of V
+    slots [b*V, (b+1)*V) with its own nil slot, and no edge, window or
+    common-neighbourhood entry leaves its block, so the B instances are
+    solved side by side by the union path with no halo traffic between
+    them.  Vertex indices (``row``, ``col``, ``window``, ``edge_common``,
+    the halo's ghost vertices and board slots) shift by ``b*V``; the
+    halo's board padding, ``V`` for one PE, becomes the union's ``B*V``;
+    ghost owners point at the instance's own board.  ``gid`` and
+    ``owner_rank`` stay per instance (p=1 has no ghosts, so the rank
+    tie-break never fires).  The plans stack with
+    :func:`~repro_torch.core.engine.stack_plans` (``e_blk`` = shared edge
+    budget).  All tensors stay on the problems' device."""
+    if not probs:
+        raise ValueError("stack_problems needs at least one problem")
+    V = probs[0].V
+    if any(p.p != 1 or p.V != V for p in probs):
+        raise ValueError("stack_problems takes single-PE problems of one "
+                         "shape")
+    if any((p.plan is None) != (probs[0].plan is None) for p in probs):
+        raise ValueError("stack_problems needs plans on all or none")
+    B = len(probs)
+    dev = probs[0].w0.device
+    off = torch.arange(B, dtype=torch.int32, device=dev) * V
+
+    def cat(get):
+        return torch.cat([get(p) for p in probs])
+
+    def shifted(get):
+        # stack [B, ...], offset instance b by b*V, flatten the batch
+        x = torch.stack([get(p) for p in probs])
+        x = x + off.view((B,) + (1,) * (x.dim() - 1))
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+
+    aux = R.Aux(
+        row=shifted(lambda p: p.aux.row), col=shifted(lambda p: p.aux.col),
+        gid=cat(lambda p: p.aux.gid), is_local=cat(lambda p: p.aux.is_local),
+        is_iface=cat(lambda p: p.aux.is_iface),
+        owner_rank=cat(lambda p: p.aux.owner_rank),
+        window=shifted(lambda p: p.aux.window),
+        win_complete=cat(lambda p: p.aux.win_complete),
+        win_adj_bits=cat(lambda p: p.aux.win_adj_bits),
+        edge_common=shifted(lambda p: p.aux.edge_common),
+    )
+    h = [p.halo for p in probs]
+    iface = torch.cat([x.iface_slots for x in h])          # [B, Bs], pad V
+    iface = torch.where(iface < V, iface + off[:, None], B * V)
+    n_board, n_ghost = iface.shape[1], h[0].ghost_vertex.shape[1]
+
+    def block_diag(get, fill):
+        # [1, 1, S] per instance → [B, B, S], no traffic off the diagonal
+        diag = torch.cat([get(x)[0] for x in h])            # [B, S]
+        out = torch.full((B, B, diag.shape[-1]), fill, dtype=diag.dtype,
+                         device=dev)
+        pes = torch.arange(B, device=dev)
+        out[pes, pes] = diag
+        return out
+
+    halo = X.Halo(
+        iface_slots=iface,
+        ghost_vertex=torch.cat([x.ghost_vertex for x in h]) + off[:, None],
+        ghost_owner_pe=torch.cat([x.ghost_owner_pe for x in h])
+        + torch.arange(B, dtype=torch.int32, device=dev)[:, None],
+        ghost_owner_slot=torch.cat([x.ghost_owner_slot for x in h]),
+        ghost_valid=torch.cat([x.ghost_valid for x in h]),
+        send_slot=block_diag(lambda x: x.send_slot, n_board),
+        recv_ghost=block_diag(lambda x: x.recv_ghost, n_ghost),
+    )
+    plan = None
+    if probs[0].plan is not None:
+        plan = E.stack_plans([p.plan for p in probs], e_blk=e_blk)
+    return UnionProblem(
+        w0=cat(lambda p: p.w0), is_local=aux.is_local,
+        is_ghost=cat(lambda p: p.is_ghost), aux=aux, halo=halo, p=B, V=V,
+        plan=plan,
     )
 
 

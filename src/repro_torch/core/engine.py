@@ -29,7 +29,9 @@ window layout.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import hashlib
+from collections import OrderedDict
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -121,13 +123,19 @@ class SegPlan(NamedTuple):
 
     ``wbits`` / ``wnh`` are the static per-edge window-position payloads
     that let the fused pass emit act_bits/clique (None when the plan was
-    built without window structure)."""
+    built without window structure).
 
-    edge_perm: torch.Tensor   # [n_blocks, E_BLK] i32
-    lrow: torch.Tensor        # [n_blocks, E_BLK] i32 (r_blk = padding)
+    A *stacked* plan (:func:`stack_plans`) carries B same-shape plans on a
+    leading axis — ``edge_perm`` / ``lrow`` ``[B, n_blocks, E_BLK]`` with
+    per-instance edge ids — and its ``wbits`` / ``wnh`` are the instances'
+    payloads one after another, ``[B*E]``: the union edge order of a
+    stacked problem (``distributed.stack_problems``)."""
+
+    edge_perm: torch.Tensor   # [(B,) n_blocks, E_BLK] i32
+    lrow: torch.Tensor        # [(B,) n_blocks, E_BLK] i32 (r_blk = padding)
     r_blk: int                # row-block height
-    wbits: Optional[torch.Tensor] = None  # [E] i32 window-position bits
-    wnh: Optional[torch.Tensor] = None    # [E] i32 clique-violation masks
+    wbits: Optional[torch.Tensor] = None  # [(B*)E] i32 window-position bits
+    wnh: Optional[torch.Tensor] = None    # [(B*)E] i32 clique-violation masks
 
 
 def autotune_r_blk(
@@ -218,6 +226,199 @@ def build_plan(
 
 
 # --------------------------------------------------------------------- #
+# topology-keyed plan caching (the serving layer's reuse contract)
+# --------------------------------------------------------------------- #
+def topology_hash(row: np.ndarray, col: np.ndarray, n_rows: int) -> str:
+    """Digest of the (sorted) directed edge list — weights excluded.
+
+    Two instances share a hash iff they have the same vertex budget and the
+    same edge set, which is exactly when every topology-derived artifact
+    (blocked-ELL :class:`SegPlan`, window payloads, halo routing) is
+    reusable verbatim; only the weight vector differs between requests.
+    The pairs are lexsorted first, so any permutation of the same edge
+    multiset maps to one key."""
+    row = np.ascontiguousarray(row, dtype=np.int64).reshape(-1)
+    col = np.ascontiguousarray(col, dtype=np.int64).reshape(-1)
+    order = np.lexsort((col, row))
+    h = hashlib.sha1()
+    h.update(np.int64(n_rows).tobytes())
+    h.update(row[order].tobytes())
+    h.update(col[order].tobytes())
+    return h.hexdigest()
+
+
+class PlanCacheStats(NamedTuple):
+    hits: int
+    misses: int
+    evictions: int
+    size: int
+    errors: int = 0          # build() raises observed by get_or_build
+    descent_hits: int = 0    # tag="descent" lookups served from cache
+    descent_misses: int = 0  # tag="descent" lookups that (re)built
+
+
+class PlanCache:
+    """Bounded LRU cache for topology-keyed artifacts (SegPlans, packed
+    serve entries).  Host-side and not thread-safe — one cache per service
+    or solver run.  ``max_entries`` bounds the resident entries; hits refresh
+    recency.  The ``tag="descent"`` counters are kept for the staged
+    solver (not ported yet)."""
+
+    def __init__(self, max_entries: int = 256):
+        if max_entries < 1:
+            raise ValueError("PlanCache needs max_entries >= 1")
+        self.max_entries = max_entries
+        self._d: OrderedDict = OrderedDict()
+        self._hits = self._misses = self._evictions = self._errors = 0
+        self._descent_hits = self._descent_misses = 0
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def __contains__(self, key) -> bool:
+        return key in self._d
+
+    def get(self, key, tag: Optional[str] = None):
+        """Value for ``key`` (refreshing recency) or None on a miss;
+        ``tag="descent"`` also counts the lookup in the descent counters."""
+        if key in self._d:
+            self._d.move_to_end(key)
+            self._hits += 1
+            if tag == "descent":
+                self._descent_hits += 1
+            return self._d[key]
+        self._misses += 1
+        if tag == "descent":
+            self._descent_misses += 1
+        return None
+
+    def put(self, key, value) -> None:
+        if key in self._d:
+            self._d.move_to_end(key)
+        self._d[key] = value
+        while len(self._d) > self.max_entries:
+            self._d.popitem(last=False)
+            self._evictions += 1
+
+    def get_or_build(self, key, build, tag: Optional[str] = None):
+        """Cached value for ``key``, calling ``build()`` (and caching) on a
+        miss.  A raising ``build()`` leaves the cache **unpoisoned**: no
+        entry for ``key``, the miss counted once, the failure counted in
+        ``stats.errors``, and the exception propagates."""
+        val = self.get(key, tag=tag)
+        if val is None:
+            try:
+                val = build()
+            except Exception:
+                self._errors += 1
+                raise
+            self.put(key, val)
+        return val
+
+    @property
+    def stats(self) -> PlanCacheStats:
+        return PlanCacheStats(
+            hits=self._hits, misses=self._misses,
+            evictions=self._evictions, size=len(self._d),
+            errors=self._errors,
+            descent_hits=self._descent_hits,
+            descent_misses=self._descent_misses,
+        )
+
+
+def plan_for(
+    cache: Optional[PlanCache],
+    row: np.ndarray, n_rows: int, *, r_blk: Optional[int] = R_BLK,
+    col: Optional[np.ndarray] = None, gid: Optional[np.ndarray] = None,
+    window: Optional[np.ndarray] = None,
+    win_adj_bits: Optional[np.ndarray] = None,
+    tag: Optional[str] = None,
+    device: torch.device | str = "cpu",
+) -> SegPlan:
+    """:func:`build_plan` through a :class:`PlanCache` keyed by topology
+    hash (plus the static build knobs and the device).  ``cache=None``
+    builds uncached."""
+    def build():
+        return build_plan(row, n_rows, r_blk=r_blk, col=col, gid=gid,
+                          window=window, win_adj_bits=win_adj_bits,
+                          device=device)
+
+    if cache is None:
+        return build()
+    key = (
+        topology_hash(row, col if col is not None else row, n_rows),
+        r_blk, window is not None, str(device),
+    )
+    return cache.get_or_build(key, build, tag=tag)
+
+
+# --------------------------------------------------------------------- #
+# batched plans (serving layer: one pass over many stacked instances)
+# --------------------------------------------------------------------- #
+def pad_plan(plan: SegPlan, e_blk: int) -> SegPlan:
+    """Pad a plan's edge budget up to ``e_blk`` so same-cell plans stack.
+
+    Padding slots follow the :func:`pack_blocks` convention — edge 0 with
+    ``lrow = r_blk`` — which every blocked path ignores, so a padded plan
+    gives the original's results bit for bit."""
+    nb, eb = plan.edge_perm.shape
+    if eb > e_blk:
+        raise ValueError(f"cannot shrink plan E_BLK {eb} -> {e_blk}")
+    if eb == e_blk:
+        return plan
+    dev = plan.edge_perm.device
+    perm = torch.zeros((nb, e_blk), dtype=I32, device=dev)
+    perm[:, :eb] = plan.edge_perm
+    lrow = torch.full((nb, e_blk), plan.r_blk, dtype=I32, device=dev)
+    lrow[:, :eb] = plan.lrow
+    return plan._replace(edge_perm=perm, lrow=lrow)
+
+
+def stack_plans(plans: Sequence[SegPlan],
+                e_blk: Optional[int] = None,
+                batch_multiple: int = 1) -> SegPlan:
+    """Stack same-cell plans onto a leading batch axis (shared E_BLK).
+
+    All plans must share ``r_blk`` and row-block count (one serve cell);
+    each is padded to the common edge budget — ``e_blk`` if given (the
+    serving layer's high-water mark), else the batch's largest.  Window
+    payloads must be present in all plans or in none, and are concatenated
+    ``[B*E]`` (see :class:`SegPlan`).  ``batch_multiple`` pads the batch up
+    to a multiple by repeating the LAST plan (phantom instances, as the
+    serving layer repeats its last request)."""
+    if not plans:
+        raise ValueError("stack_plans needs at least one plan")
+    if batch_multiple < 1:
+        raise ValueError(f"batch_multiple must be >= 1, got {batch_multiple}")
+    if len(plans) % batch_multiple:
+        pad = batch_multiple - len(plans) % batch_multiple
+        plans = list(plans) + [plans[-1]] * pad
+    r_blk = plans[0].r_blk
+    nb = plans[0].edge_perm.shape[0]
+    if any(p.r_blk != r_blk or p.edge_perm.shape[0] != nb for p in plans):
+        raise ValueError("stack_plans needs plans from one serve cell "
+                         "(same r_blk and row-block count)")
+    has_w = [p.wbits is not None for p in plans]
+    if any(h != has_w[0] for h in has_w):
+        raise ValueError("mixed window payloads across batch plans")
+    if has_w[0] and len({p.wbits.shape[0] for p in plans}) != 1:
+        raise ValueError("stack_plans needs one edge count across the batch")
+    need = max(p.edge_perm.shape[1] for p in plans)
+    if e_blk is None:
+        e_blk = need
+    elif e_blk < need:
+        raise ValueError(f"e_blk={e_blk} below batch requirement {need}")
+    padded = [pad_plan(p, e_blk) for p in plans]
+    return SegPlan(
+        edge_perm=torch.stack([p.edge_perm for p in padded]),
+        lrow=torch.stack([p.lrow for p in padded]),
+        r_blk=r_blk,
+        wbits=torch.cat([p.wbits for p in padded]) if has_w[0] else None,
+        wnh=torch.cat([p.wnh for p in padded]) if has_w[0] else None,
+    )
+
+
+# --------------------------------------------------------------------- #
 # the one segment-reduction entry point (backend dispatch)
 # --------------------------------------------------------------------- #
 def aggregate(
@@ -237,7 +438,9 @@ def aggregate(
     Returns a ``(sum, max, min, or)`` tuple (None for absent groups); 1-D
     payloads come back 1-D.  ``seg`` is the per-item segment id array,
     needed by the torch backend only (the blocked backends traverse the
-    precomputed ``plan``)."""
+    precomputed ``plan``).  A stacked plan (:func:`stack_plans`) of B
+    instances reduces the union layout of a stacked problem: ``n_rows``
+    rows, B blocks of ``n_rows / B``, each instance's own edges."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown aggregate backend {backend!r}")
     groups = [data_sum, data_max, data_min, data_or]
@@ -263,8 +466,15 @@ def aggregate(
         if plan is None:
             raise ValueError(f"backend {backend!r} needs a SegPlan")
         fused = segment_fused_coo if backend == "cuda" else segment_fused_plain
+        rows = n_rows
+        if plan.edge_perm.dim() == 3:
+            batch = plan.edge_perm.shape[0]
+            if n_rows % batch:
+                raise ValueError(f"n_rows={n_rows} does not split into the "
+                                 f"stacked plan's {batch} instances")
+            rows = n_rows // batch
         outs = fused(
-            plan.edge_perm, plan.lrow, n_rows,
+            plan.edge_perm, plan.lrow, rows,
             data_sum=d_sum, data_max=d_max, data_min=d_min, data_or=d_or,
             or_nbits=or_nbits, r_blk=plan.r_blk,
         )
@@ -272,6 +482,51 @@ def aggregate(
         o[:, 0] if o is not None and sq else o
         for o, sq in zip(outs, squeeze)
     )
+
+
+def aggregate_batched(
+    seg: Optional[torch.Tensor],
+    n_rows: int,
+    *,
+    data_sum: Optional[torch.Tensor] = None,
+    data_max: Optional[torch.Tensor] = None,
+    data_min: Optional[torch.Tensor] = None,
+    data_or: Optional[torch.Tensor] = None,
+    or_nbits: int = 16,
+    backend: str = "torch",
+    plan: Optional[SegPlan] = None,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """:func:`aggregate` over a leading batch axis.
+
+    Payloads (and ``seg``, when given) carry a leading batch dimension
+    ``[B, E, ...]``; the blocked backends need a stacked ``plan``
+    (:func:`stack_plans`).  Every instance is reduced independently, in one
+    pass over the union layout, and the outputs come back
+    ``[B, n_rows, ...]`` — bit-identical per instance to the unbatched
+    entry point on every backend (the payloads are int32)."""
+    groups = (data_sum, data_max, data_min, data_or)
+    first = next((d for d in groups if d is not None), None)
+    if first is None:
+        raise ValueError("aggregate needs at least one payload group")
+    batch, n_edges = first.shape[:2]
+    if backend != "torch" and (plan is None or plan.edge_perm.dim() != 3
+                               or plan.edge_perm.shape[0] != batch):
+        raise ValueError(f"backend {backend!r} needs a stacked SegPlan of "
+                         f"{batch} instances (engine.stack_plans)")
+    useg = None
+    if seg is not None:
+        off = torch.arange(batch, device=seg.device, dtype=seg.dtype)
+        useg = (seg + off[:, None] * n_rows).reshape(-1)
+    flat = [None if d is None else d.reshape((batch * n_edges,) + d.shape[2:])
+            for d in groups]
+    outs = aggregate(
+        useg, batch * n_rows, data_sum=flat[0], data_max=flat[1],
+        data_min=flat[2], data_or=flat[3], or_nbits=or_nbits,
+        backend=backend, plan=plan,
+    )
+    return tuple(None if o is None else o.reshape((batch, n_rows)
+                                                  + o.shape[1:])
+                 for o in outs)
 
 
 # --------------------------------------------------------------------- #

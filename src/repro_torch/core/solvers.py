@@ -187,6 +187,35 @@ def solve_union(prob: UnionProblem, algo: str, cfg: DisReduConfig):
     return state, R.reconstruct_members(state, prob.aux), trips
 
 
+def solve_union_arrays(w0, is_local, is_ghost, aux, halo, plan, *, algo,
+                       heavy_k, use_heavy, sweeps, max_rounds, p,
+                       schedule="cheap", backend="torch"):
+    """Union-path solve body over plain tensors: ``(state, members [p, V])``.
+
+    The batch seam of the serving layer (the reference vmaps its
+    counterpart).  Here the batch is the union layout itself: B single-PE
+    instances stacked by :func:`~repro_torch.core.distributed.
+    stack_problems` go in as one p=B problem, and row b of ``members`` is
+    instance b's [V] membership.  Per instance this is the single-instance
+    solve bit for bit: every payload is int32, rules, greedy rounds and
+    peels act per vertex over edges that stay inside an instance, the peel
+    takes one vertex per PE, and every round body is idempotent at its
+    fixpoint — an instance that finishes early is unchanged by the trips
+    its batchmates still need.  ``state.offset`` is ONE int32 over the
+    union, so no per-instance offset can be read from a batched state (the
+    serving layer recomputes each weight from the request's weights)."""
+    V = w0.shape[0] // p
+    prob = UnionProblem(w0, is_local, is_ghost, aux, halo, p, V, plan)
+    cfg = DisReduConfig(
+        heavy_k=heavy_k, use_heavy=use_heavy,
+        mode="sync" if sweeps >= 1_000_000 else "async",
+        stale_sweeps=sweeps, max_rounds=max_rounds, schedule=schedule,
+        backend=backend,
+    )
+    state, members, _ = solve_union(prob, algo, cfg)
+    return state, members.reshape(p, V)
+
+
 def solve(
     pg: PartitionedGraph,
     algo: str,

@@ -15,6 +15,13 @@
 // depend on the order the atomics land in: it is bit-identical to the
 // reference.
 //
+// Batch axis (the serving layer's stacked plans; the reference vmaps the
+// TPU kernel there): grid axis y is the instance b.  Instance b's plan is the
+// b-th [n_blocks, e_blk] slab, its edge ids index the payload rows
+// [b*e_stride, (b+1)*e_stride) and its output rows are
+// [b*n_rows, (b+1)*n_rows), with the ragged last row block guarded per
+// instance.  A batch of 1 (e_stride unused) is the unbatched launch.
+//
 // Bound: bytes.  Per call the kernel must read lrow (and edge_perm for live
 // slots) once, each live edge's payload row once, and write n_rows x D* int32;
 // there is almost no arithmetic.  What the design does about it: the payload
@@ -34,7 +41,7 @@ __global__ void segment_fused_kernel(
     const int* __restrict__ d_min, const int* __restrict__ d_or,
     int* __restrict__ o_sum, int* __restrict__ o_max,
     int* __restrict__ o_min, int* __restrict__ o_or,
-    int e_blk, int r_blk, int n_rows,
+    int e_blk, int r_blk, int n_rows, long long e_stride,
     int ds, int dm, int dn, int d_o, unsigned or_mask) {
   extern __shared__ int acc[];  // [r_blk, dt]
   const int dt = ds + dm + dn + d_o;
@@ -45,11 +52,12 @@ __global__ void segment_fused_kernel(
   }
   __syncthreads();
 
-  const long long base = (long long)blockIdx.x * e_blk;
+  const long long b = blockIdx.y;
+  const long long base = (b * gridDim.x + blockIdx.x) * e_blk;
   for (int j = threadIdx.x; j < e_blk; j += blockDim.x) {
     const int r = lrow[base + j];
     if (r < 0 || r >= r_blk) continue;  // padding slot
-    const long long e = edge_perm[base + j];
+    const long long e = b * e_stride + edge_perm[base + j];
     int* a = acc + r * dt;
     for (int c = 0; c < ds; ++c) atomicAdd(a + c, d_sum[e * ds + c]);
     a += ds;
@@ -62,12 +70,12 @@ __global__ void segment_fused_kernel(
   }
   __syncthreads();
 
-  const long long row0 = (long long)blockIdx.x * r_blk;
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
     const int r = i / dt;
     int c = i % dt;
-    const long long row = row0 + r;
-    if (row >= n_rows) continue;
+    const int local = blockIdx.x * r_blk + r;
+    if (local >= n_rows) continue;
+    const long long row = b * n_rows + local;
     if (c < ds) { o_sum[row * ds + c] = acc[i]; continue; }
     c -= ds;
     if (c < dm) { o_max[row * dm + c] = acc[i]; continue; }
@@ -82,18 +90,21 @@ __global__ void segment_fused_kernel(
 
 // Launch on `stream` without synchronising; returns cudaGetLastError().
 // Absent payload groups pass a width of 0 (their pointers are not read).
+// `batch` instances of `n_blocks` row blocks each; `n_rows` and `e_stride`
+// are per instance.
 extern "C" int segment_fused_launch(
     const void* edge_perm, const void* lrow,
     const void* d_sum, const void* d_max, const void* d_min, const void* d_or,
     void* o_sum, void* o_max, void* o_min, void* o_or,
-    int n_blocks, int e_blk, int r_blk, int n_rows,
+    int batch, int n_blocks, int e_blk, int r_blk, int n_rows, int e_stride,
     int ds, int dm, int dn, int d_o, int or_nbits, void* stream) {
   const unsigned or_mask = (1u << or_nbits) - 1u;
   const size_t smem = sizeof(int) * (size_t)r_blk * (ds + dm + dn + d_o);
-  segment_fused_kernel<<<n_blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid(n_blocks, batch);
+  segment_fused_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)edge_perm, (const int*)lrow,
       (const int*)d_sum, (const int*)d_max, (const int*)d_min,
       (const int*)d_or, (int*)o_sum, (int*)o_max, (int*)o_min, (int*)o_or,
-      e_blk, r_blk, n_rows, ds, dm, dn, d_o, or_mask);
+      e_blk, r_blk, n_rows, e_stride, ds, dm, dn, d_o, or_mask);
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,10 @@ sum / max / min / OR, ``csrc/segment_fused.cu``), ``segment_sum`` that of
 ``segment_sum_blocked`` (float32 / bfloat16 sums, ``csrc/segment_sum.cu``);
 each source says how it is laid out and what bounds it.  Both take the
 *unblocked* ``[E, D]`` payloads and gather them through ``edge_perm``
-inside the kernel.  CUDA tensors of the listed types only: anything else
-raises, there is no fallback.  The plain versions are
+inside the kernel.  ``segment_fused`` also takes a batch of plans stacked
+on a leading axis (the serving layer's stacked problems), one grid axis per
+instance.  CUDA tensors of the listed types only: anything else raises,
+there is no fallback.  The plain versions are
 :func:`repro_torch.kernels.segment_coo.ref.segment_fused_blocked_ref` and
 :func:`~repro_torch.kernels.segment_coo.ref.segment_sum_blocked_ref`.
 """
@@ -29,7 +31,7 @@ LIBS = {
     "segment_sum": ("segment_sum", (_CSRC / "segment_sum.cu",)),
 }
 _ARGTYPES = {
-    "segment_fused": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    "segment_fused": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
     "segment_sum": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
@@ -37,6 +39,8 @@ _ARGTYPES = {
 
 #: Dynamic shared memory a segment_fused block takes without opting in.
 _SMEM_LIMIT = 48 * 1024
+#: The most instances one segment_fused launch takes (grid axis y).
+_MAX_BATCH = 65_535
 #: The largest r_blk segment_sum takes: one warp's shared memory
 #: (``warp_smem`` in the source, at its widest vector of 4 columns a lane)
 #: must fit the 227 KB a Hopper block may opt into, for every payload.
@@ -53,15 +57,16 @@ def _launcher(name: str):
     return fn
 
 
-def _check_plan(edge_perm, lrow, n_rows: int, r_blk: int) -> torch.device:
+def _check_plan(edge_perm, lrow, n_rows: int, r_blk: int,
+                ndim: int = 2) -> torch.device:
     device = edge_perm.device
-    check("edge_perm", edge_perm, device, 2)
-    check("lrow", lrow, device, 2)
+    check("edge_perm", edge_perm, device, ndim)
+    check("lrow", lrow, device, ndim)
     if lrow.shape != edge_perm.shape:
         raise ValueError(
             f"lrow {tuple(lrow.shape)} != edge_perm {tuple(edge_perm.shape)}"
         )
-    n_blocks = edge_perm.shape[0]
+    n_blocks = edge_perm.shape[-2]
     if not 0 < n_rows <= n_blocks * r_blk:
         raise ValueError(
             f"n_rows={n_rows} outside (0, n_blocks*r_blk={n_blocks * r_blk}]"
@@ -84,27 +89,36 @@ def _sum_vec(data: torch.Tensor) -> int:
 
 
 def segment_fused(
-    edge_perm: torch.Tensor,   # [n_blocks, E_BLK] i32 edge ids (pack_blocks)
-    lrow: torch.Tensor,        # [n_blocks, E_BLK] i32 local rows (R_BLK = pad)
+    edge_perm: torch.Tensor,   # [(B,) n_blocks, E_BLK] i32 edge ids
+    lrow: torch.Tensor,        # [(B,) n_blocks, E_BLK] i32 local rows
     n_rows: int,
     *,
     r_blk: int,
-    data_sum: torch.Tensor | None = None,   # [E, Ds] i32
-    data_max: torch.Tensor | None = None,   # [E, Dm] i32
-    data_min: torch.Tensor | None = None,   # [E, Dn] i32
-    data_or: torch.Tensor | None = None,    # [E, Do] i32
+    data_sum: torch.Tensor | None = None,   # [(B*)E, Ds] i32
+    data_max: torch.Tensor | None = None,   # [(B*)E, Dm] i32
+    data_min: torch.Tensor | None = None,   # [(B*)E, Dn] i32
+    data_or: torch.Tensor | None = None,    # [(B*)E, Do] i32
     or_nbits: int = 16,
 ):
     """Launch the kernel on the current stream; returns a (sum, max, min,
     or) tuple of [n_rows, D*] int32 tensors (None for absent groups).
-    Does not synchronise."""
+    Does not synchronise.
+
+    A 3-D plan is a batch of B plans of one shape (``engine.stack_plans``):
+    instance b's edge ids index payload rows [b*E, (b+1)*E) with
+    E = payload rows / B, ``n_rows`` counts one instance's rows, and the
+    outputs are [B*n_rows, D*], instance b's rows at [b*n_rows, ...)."""
     if not 0 < or_nbits < 32:
         raise ValueError(f"or_nbits must be in (0, 32), got {or_nbits}")
     groups = (data_sum, data_max, data_min, data_or)
     if all(d is None for d in groups):
         raise ValueError("segment_fused needs at least one payload")
-    device = _check_plan(edge_perm, lrow, n_rows, r_blk)
-    n_blocks, e_blk = edge_perm.shape
+    batched = edge_perm.dim() == 3
+    device = _check_plan(edge_perm, lrow, n_rows, r_blk, 3 if batched else 2)
+    batch = edge_perm.shape[0] if batched else 1
+    if not 0 < batch <= _MAX_BATCH:
+        raise ValueError(f"batch {batch} outside (0, {_MAX_BATCH}]")
+    n_blocks, e_blk = edge_perm.shape[-2:]
     n_edges = None
     for name, d in zip(("data_sum", "data_max", "data_min", "data_or"),
                        groups):
@@ -115,6 +129,9 @@ def segment_fused(
             raise ValueError(f"{name} has {d.shape[0]} edges, expected "
                              f"{n_edges}")
         n_edges = d.shape[0]
+    if n_edges % batch:
+        raise ValueError(f"{n_edges} payload rows do not split into "
+                         f"{batch} instances")
     widths = [0 if d is None else d.shape[1] for d in groups]
     smem = 4 * r_blk * sum(widths)
     if smem > _SMEM_LIMIT:
@@ -123,7 +140,7 @@ def segment_fused(
     require_cuda("segment_fused", device)
     outs = [
         None if d is None else torch.empty(
-            (n_rows, d.shape[1]), dtype=torch.int32, device=device
+            (batch * n_rows, d.shape[1]), dtype=torch.int32, device=device
         )
         for d in groups
     ]
@@ -134,7 +151,8 @@ def segment_fused(
     launch("segment_fused", _launcher("segment_fused"), device,
            edge_perm.data_ptr(), lrow.data_ptr(),
            *(ptr(d) for d in groups), *(ptr(o) for o in outs),
-           n_blocks, e_blk, r_blk, n_rows, *widths, or_nbits)
+           batch, n_blocks, e_blk, r_blk, n_rows, n_edges // batch, *widths,
+           or_nbits)
     return tuple(outs)
 
 

@@ -43,9 +43,11 @@ def pack_blocks(
     return edge_perm, lrow, e_blk
 
 
-def _unblock(out: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """[n_blocks, R_BLK, D] → the first n_rows rows of [n_blocks*R_BLK, D]."""
-    return out.reshape(out.shape[0] * out.shape[1], -1)[:n_rows]
+def _unblock(out: torch.Tensor, n_rows: int, batch: int = 1) -> torch.Tensor:
+    """[(B,) n_blocks, R_BLK, D] → the first n_rows rows of each instance's
+    [n_blocks*R_BLK, D], instances one after another: [B*n_rows, D]."""
+    d = out.shape[-1]
+    return out.reshape(batch, -1, d)[:, :n_rows].reshape(batch * n_rows, d)
 
 
 def segment_sum_plain(
@@ -89,20 +91,30 @@ def segment_fused_plain(
     or_nbits: int = 16, r_blk: int = 8,
 ):
     """Plain torch form of :func:`segment_fused_coo`: gather every payload
-    group into [n_blocks, E_BLK, D*] blocks, reduce per block, unblock."""
-    n_blocks, e_blk = edge_perm.shape
-    flat = edge_perm.reshape(-1).long()
+    group into [(B,) n_blocks, E_BLK, D*] blocks, reduce per block, unblock
+    (per instance for a batch of plans)."""
+    flat = edge_perm.long()
+    batch = 1
+    if edge_perm.dim() == 3:
+        # instance b's edge ids index payload rows [b*E, (b+1)*E)
+        batch = edge_perm.shape[0]
+        n_edges = next(d.shape[0] for d in (data_sum, data_max, data_min,
+                                            data_or) if d is not None)
+        flat = flat + (torch.arange(batch, device=flat.device)
+                       * (n_edges // batch))[:, None, None]
+    flat = flat.reshape(-1)
 
     def gather(data):
         if data is None:
             return None
-        return data[flat].reshape(n_blocks, e_blk, data.shape[-1])
+        return data[flat].reshape(*edge_perm.shape, data.shape[-1])
 
     outs = segment_fused_blocked_ref(
         gather(data_sum), gather(data_max), gather(data_min), lrow,
         data_or=gather(data_or), or_nbits=or_nbits, r_blk=r_blk,
     )
-    return tuple(None if o is None else _unblock(o, n_rows) for o in outs)
+    return tuple(None if o is None else _unblock(o, n_rows, batch)
+                 for o in outs)
 
 
 def segment_fused_coo(
@@ -120,6 +132,11 @@ def segment_fused_coo(
     """Fused blocked segment sum+max+min+or over one packed edge list;
     returns a (sum, max, min, or) tuple of [n_rows, D*] tensors (None where
     the payload group is absent).
+
+    A 3-D plan ``[B, n_blocks, E_BLK]`` is a batch of B same-shape plans
+    (``engine.stack_plans``): payloads are [B*E, D*] with instance b's edges
+    at [b*E, (b+1)*E), ``n_rows`` counts one instance's rows, and the
+    outputs are [B*n_rows, D*].
 
     CUDA tensors launch the hand-written kernel (one pass, payloads gathered
     inside it); CPU tensors take the plain torch version.  Anything else —

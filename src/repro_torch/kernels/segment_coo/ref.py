@@ -109,28 +109,31 @@ def segment_sum_blocked_ref(
 
 
 def segment_fused_blocked_ref(
-    data_sum: torch.Tensor | None,   # [n_blocks, E_BLK, Ds]
-    data_max: torch.Tensor | None,   # [n_blocks, E_BLK, Dm]
-    data_min: torch.Tensor | None,   # [n_blocks, E_BLK, Dn]
-    lrow: torch.Tensor,              # [n_blocks, E_BLK] (R_BLK = padding)
+    data_sum: torch.Tensor | None,   # [(B,) n_blocks, E_BLK, Ds]
+    data_max: torch.Tensor | None,   # [(B,) n_blocks, E_BLK, Dm]
+    data_min: torch.Tensor | None,   # [(B,) n_blocks, E_BLK, Dn]
+    lrow: torch.Tensor,              # [(B,) n_blocks, E_BLK] (R_BLK = pad)
     *,
     r_blk: int,
-    data_or: torch.Tensor | None = None,   # [n_blocks, E_BLK, Do]
+    data_or: torch.Tensor | None = None,   # [(B,) n_blocks, E_BLK, Do]
     or_nbits: int = 16,
 ):
     """Per-block sum/max/min/or reductions of gathered edge payloads;
-    returns a (sum, max, min, or) tuple of [n_blocks, R_BLK, D*] tensors
-    (None for absent groups).  Row ``r_blk`` of every block collects the
-    padding slots and is sliced off."""
-    n_blocks, e_blk = lrow.shape
-    seg, n_seg = _block_segments(lrow, r_blk)
+    returns a (sum, max, min, or) tuple of [(B,) n_blocks, R_BLK, D*]
+    tensors (None for absent groups).  Row ``r_blk`` of every block
+    collects the padding slots and is sliced off.  A leading batch axis
+    (stacked plans) is a run of independent blocks: the batched plain
+    version of the kernel's second grid axis."""
+    lead, e_blk = lrow.shape[:-1], lrow.shape[-1]
+    n_blocks = lead.numel()
+    seg, n_seg = _block_segments(lrow.reshape(n_blocks, e_blk), r_blk)
 
     def blocked(op, data, **kw):
         if data is None:
             return None
         flat = data.reshape(n_blocks * e_blk, data.shape[-1])
         out = op(flat, seg, n_seg, **kw)
-        return out.reshape(n_blocks, r_blk + 1, -1)[:, :r_blk]
+        return out.reshape(*lead, r_blk + 1, -1)[..., :r_blk, :]
 
     return (
         blocked(segment_sum, data_sum),

@@ -1,0 +1,149 @@
+"""Serving entry point of the port: batched MWIS solving on one card.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mwis --requests 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mwis --algo rnp \\
+        --backend cuda --batch 16 --repeat-topologies 4
+
+A stream of random instances is bucketed into the static serve cells,
+topology-cached and solved as stacked batches
+(:mod:`repro_torch.core.serve`); it reports sustained
+instances/sec, p50/p99 batch latency and plan-cache statistics.  Same
+flags and printed lines as ``repro.launch.serve --arch mwis``, without
+``--descent`` / ``--devices`` / ``--no-pipeline`` (the port serves on one
+card, synchronously), plus ``--device`` (default cuda; without a visible
+GPU it exits unless ``--device cpu`` is given).  The other archs of the
+reference (dlrm-mlperf, the LMs) wait for their models' port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.core import serve as SV
+from repro_torch.graphs.generators import gnm
+
+ARCHES = ("mwis",)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="mwis", choices=ARCHES)
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--algo", default="rg",
+                    choices=("greedy", "rg", "rnp"))
+    ap.add_argument("--backend", default="torch",
+                    choices=("torch", "blocked", "cuda"))
+    ap.add_argument("--repeat-topologies", type=int, default=4,
+                    help="requests sharing one topology (fresh weights)")
+    ap.add_argument("--verify", default="off",
+                    choices=("off", "sample", "full"),
+                    help="post-solve output audit (independence + weight)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device the service solves on (cuda | cpu)")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def make_requests(cells, n_requests: int, repeat: int, seed: int) -> list:
+    """The reference's instance stream: cycle the cells, one GNM topology
+    at n = 0.8 L, m = min(2n, E/4) per step, each repeated ``repeat``
+    times with fresh weights in [1, 200] (the re-auction pattern)."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    topo = 0
+    while len(reqs) < n_requests:
+        cell = cells[topo % len(cells)]
+        n = int(cell.L * 0.8)
+        m = min(2 * n, cell.E // 4)
+        g = gnm(n, m, seed=seed + topo)
+        for _ in range(repeat):
+            w = rng.integers(1, 201, size=g.n).astype(np.int32)
+            reqs.append(type(g)(indptr=g.indptr, indices=g.indices,
+                                weights=w))
+            if len(reqs) == n_requests:
+                break
+        topo += 1
+    return reqs
+
+
+def serve_mwis(args: argparse.Namespace) -> dict:
+    """Build the service, drive the stream (one warm-up pass, one timed
+    pass, one pass for the solution weights), print the reference's lines;
+    returns the service, the throughput record and the last pass's
+    results."""
+    cfg = SV.ServeConfig(algo=args.algo, backend=args.backend,
+                         max_batch=args.batch, verify=args.verify,
+                         device=args.device)
+    try:
+        svc = SV.MWISService(cfg)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        raise SystemExit(2)
+    cells = svc.cells
+    print(f"mwis service: algo={cfg.algo} backend={cfg.backend} "
+          f"verify={cfg.verify} descent={cfg.descent} "
+          f"batch<={cfg.max_batch} cells="
+          f"{[f'{c.name}(L={c.L},E={c.E})' for c in cells]}")
+    visible = torch.cuda.device_count() if svc.device.type == "cuda" else 1
+    print(f"devices: 1/{visible} visible ({svc.device.type}) pipeline=off")
+
+    reqs = make_requests(cells, args.requests, args.repeat_topologies,
+                         args.seed)
+    batches = [reqs[i:i + args.batch]
+               for i in range(0, len(reqs), args.batch)]
+    stats = SV.measure_throughput(svc, batches, warmup=1)
+    tot_w = 0
+    n_err = 0
+    results = []
+    for b in batches:
+        rs = svc.solve_batch(list(b))
+        results.extend(rs)
+        tot_w += sum(r.weight for r in rs)
+        n_err += sum(not r.ok for r in rs)
+    print(f"requests={stats['instances']} batches={stats['batches']} "
+          f"throughput={stats['instances_per_sec']:.1f} inst/s")
+    print(f"p50={stats['p50_ms']:.2f}ms p99={stats['p99_ms']:.2f}ms "
+          f"(per-batch latency)")
+    print(f"total solution weight (last pass): {tot_w} "
+          f"({n_err} per-request errors)")
+    s = svc.stats
+    print(f"cache: hits={s['cache_hits']} misses={s['cache_misses']} "
+          f"evictions={s['cache_evictions']} errors={s['cache_errors']} "
+          f"size={s['cache_size']} programs={s['programs']} "
+          f"compiles={s['compiles']}")
+    print(f"robustness: backend={s['backend']}"
+          f"{'' if s['backend_active'] == s['backend'] else ' -> ' + s['backend_active']} "
+          f"rejected={s['rejected']} repaired={s['repaired']} "
+          f"pack_errors={s['pack_errors']} solve_errors={s['solve_errors']} "
+          f"fallbacks={s['fallbacks']} "
+          f"verified={s['verify_checked']}/{s['verify_failures']} "
+          f"(checked/failed)")
+    print(f"descent: mode={cfg.descent} "
+          f"solves={s['descent_solves']} descents={s['descents']} "
+          f"oversize_admitted={s['oversize_admitted']} "
+          f"plan_cache_hits={s['cache_descent_hits']}/"
+          f"{s['cache_descent_hits'] + s['cache_descent_misses']}")
+    p50 = s["stage_p50_ms"]
+    print(f"stages (p50/chunk): pack={p50['pack']:.2f}ms "
+          f"transfer={p50['transfer']:.2f}ms solve={p50['solve']:.2f}ms "
+          f"fetch={p50['fetch']:.2f}ms")
+    print(f"pipeline: devices={s['devices']} chunks={s['chunks']} "
+          f"pipelined={s['pipelined_chunks']} "
+          f"retries={s['pipeline_retries']} "
+          f"overlap_ratio={s['overlap_ratio']:.3f}")
+    return dict(service=svc, throughput=stats, requests=reqs,
+                results=results)
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    serve_mwis(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import distributed as D
+from repro_torch.core import engine as E
+from repro_torch.core import serve as SV
 from repro_torch.core import partition as part
 from repro_torch.core import solvers as S
 from repro_torch.graphs import generators as gen
@@ -70,6 +72,92 @@ def test_kernel_matches_plain(cuda, n_rows, n_edges, r_blk, widths, nbits):
         assert (g is None) == (w is None)
         if g is not None:
             assert torch.equal(g, w)
+
+
+def _stacked_case(rng, n_rows, n_edges, r_blk, batch, widths, device):
+    """``batch`` random instances of one shape — rows sorted, a quarter of
+    the slots on the last (nil) row as a partition pads them — packed,
+    stacked (``engine.stack_plans``) and with [batch*E, D*] payloads."""
+    plans = []
+    for _ in range(batch):
+        row = rng.integers(0, n_rows, size=n_edges)
+        row[: n_edges // 4] = n_rows - 1
+        plans.append(E.build_plan(np.sort(row).astype(np.int32), n_rows,
+                                  r_blk=r_blk, device=device))
+    names = ("data_sum", "data_max", "data_min", "data_or")
+    data = {
+        k: torch.from_numpy(
+            rng.integers(-(1 << 20), 1 << 20, size=(batch * n_edges, d))
+            .astype(np.int32)).to(device)
+        for k, d in zip(names, widths) if d
+    }
+    return E.stack_plans(plans), plans, data
+
+
+#: The serve cells' rows (V = L + G + 1), edge slots and r_blk.
+SERVE_SHAPES = [(69, 1024, 8), (261, 4096, 16), (1029, 16384, 32)]
+
+
+@pytest.mark.parametrize("batch", [1, 4, 64])
+@pytest.mark.parametrize("n_rows,n_edges,r_blk", SERVE_SHAPES)
+def test_batched_kernel_matches_plain(cuda, n_rows, n_edges, r_blk, batch):
+    """The kernel over a stacked plan (one grid row per instance) against
+    the batched plain version: exact."""
+    rng = np.random.default_rng(batch * 31 + r_blk)
+    plan, _, data = _stacked_case(rng, n_rows, n_edges, r_blk, batch,
+                                  (2, 2, 1, 2), cuda)
+    before = kernels.launch_count("segment_fused")
+    got = segment_fused_coo(plan.edge_perm, plan.lrow, n_rows, r_blk=r_blk,
+                            or_nbits=8, **data)
+    torch.cuda.synchronize()
+    assert kernels.launch_count("segment_fused") == before + 1
+    want = segment_fused_plain(plan.edge_perm, plan.lrow, n_rows,
+                               r_blk=r_blk, or_nbits=8, **data)
+    for g, w in zip(got, want):
+        assert g.shape == (batch * n_rows, w.shape[1])
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_rows,n_edges,r_blk", SERVE_SHAPES)
+def test_batch_of_one_is_the_unbatched_launch(cuda, n_rows, n_edges, r_blk):
+    """A stacked plan of one instance gives the 2-D plan's launch bit for
+    bit; each instance of a batch of 4 gives its own unbatched result."""
+    rng = np.random.default_rng(r_blk)
+    for batch in (1, 4):
+        plan, plans, data = _stacked_case(rng, n_rows, n_edges, r_blk,
+                                          batch, (2, 2, 0, 2), cuda)
+        got = K.segment_fused(plan.edge_perm, plan.lrow, n_rows,
+                              r_blk=r_blk, or_nbits=8, **data)
+        for b, one in enumerate(plans):
+            mine = {k: v[b * n_edges:(b + 1) * n_edges]
+                    for k, v in data.items()}
+            want = K.segment_fused(one.edge_perm, one.lrow, n_rows,
+                                   r_blk=r_blk, or_nbits=8, **mine)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                if w is not None:
+                    assert torch.equal(g[b * n_rows:(b + 1) * n_rows], w)
+
+
+@pytest.mark.parametrize("algo", ["rg", "rnp"])
+def test_batched_serving_on_cuda_matches_torch(cuda, algo):
+    """The serving path on the card (stacked plans, the kernel's batch axis)
+    against the service's ``torch`` backend on the card: every request's
+    members and weight identical, through all three cells."""
+    from repro_torch.launch.serve import make_requests
+
+    reqs = make_requests(SV.serve_cells(), 12 if algo == "rg" else 6, 2, 0)
+    before = kernels.launch_count("segment_fused")
+    got = SV.MWISService(SV.ServeConfig(
+        algo=algo, backend="cuda", max_batch=16, verify="full",
+    )).solve_batch(reqs)
+    assert kernels.launch_count("segment_fused") > before
+    want = SV.MWISService(SV.ServeConfig(
+        algo=algo, backend="torch", max_batch=16,
+    )).solve_batch(reqs)
+    for g, w in zip(got, want):
+        assert g.ok and w.ok and g.weight == w.weight
+        np.testing.assert_array_equal(g.members, w.members)
 
 
 def test_kernel_rejects_other_dtypes(cuda):

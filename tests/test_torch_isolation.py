@@ -1,7 +1,8 @@
-"""The port stands alone: importing and running it loads neither JAX nor
-the reference package, an entry point without ``device=`` refuses to run
-when no GPU is visible, and CPU tensors never count as kernel launches —
-neither on the solver's path nor through the three kernel ops off it."""
+"""The port stands alone: importing and running it — the solver, the
+serving layer and both CLIs — loads neither JAX nor the reference package,
+an entry point without ``device=`` refuses to run when no GPU is visible,
+and CPU tensors never count as kernel launches — neither on the solver's
+or the service's path nor through the three kernel ops off it."""
 
 import os
 import subprocess
@@ -20,12 +21,14 @@ SCRIPT = textwrap.dedent("""
     from repro_torch import kernels
     from repro_torch.core import distributed as D
     from repro_torch.core import partition as part
+    from repro_torch.core import serve as SV
     from repro_torch.core import solvers as S
     from repro_torch.graphs import generators as gen
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.segment_coo.ops import pack_blocks, segment_sum_coo
     from repro_torch.kernels.wedge_intersect.ops import common_neighbor_stats
     from repro_torch.launch import mwis_run
+    from repro_torch.launch import serve as serve_cli
 
     assert not torch.cuda.is_available()
     g = gen.rgg2d(200, avg_deg=6, seed=0)
@@ -52,13 +55,22 @@ SCRIPT = textwrap.dedent("""
                                                          dtype=torch.int32),
                         torch.ones((2, 3)))
     assert out.tolist() == [[3.0] * 4] * 2
+    svc = SV.MWISService(SV.ServeConfig(backend="cuda", device="cpu",
+                                        verify="full"))
+    res = svc.solve_batch([gen.gnm(40, 80, seed=s) for s in range(3)])
+    assert all(r.ok for r in res), res
+    assert svc.stats["backend_active"] == "cuda"
+    serve_cli.main(["--device", "cpu", "--requests", "2", "--batch", "2",
+                    "--repeat-topologies", "2", "--algo", "greedy"])
     counts = tuple(kernels.launch_count(k) for k in (
         "segment_fused", "segment_sum", "wedge_intersect", "embedding_bag"))
     assert counts == (0, 0, 0, 0), counts
 
     for call in (lambda: S.solve(pg, "rnp", cfg),
                  lambda: D.disredu(pg, cfg),
-                 lambda: mwis_run.main(["--n", "50", "--p", "2"])):
+                 lambda: mwis_run.main(["--n", "50", "--p", "2"]),
+                 lambda: SV.MWISService(),
+                 lambda: serve_cli.main(["--requests", "2"])):
         try:
             call()
         except RuntimeError as e:
