@@ -29,7 +29,9 @@ continues):
                ``cuda`` runs, the three kernels off this path 0;
   6. kernel at full size — the kernel against its plain version on the
                full-size plan with the run's real payload columns, timed
-               with CUDA events beside its bound and a scatter_reduce
+               (replayed from a CUDA graph, and called one call after
+               another) beside its bound over the live slots, the bound
+               that also sweeps every plan slot, and a scatter_reduce
                yardstick;
   7. wedge at full size — ``common_neighbor_stats`` on the reduce run's
                union problem (windows, edges) with its initial and its
@@ -37,7 +39,8 @@ continues):
   8. replay  — the host time of the fold-log replay
                (``rules.reconstruct_members``) of the full-size runs;
   9. rnp     — rnp/edges-only on ``cuda`` at ``--rnp-n`` (its host-driven
-               peel loop does not fit the time limit at full size);
+               peel loop does not fit the time limit at full size), then
+               the kernel on its plan, timed as in phase 6;
  10. oracle  — greedy on the card equals the sequential priority greedy;
  11. profile — the reduce run again under torch.profiler: device time by
                kernel and by op, and the device's busy share of the wall
@@ -58,8 +61,8 @@ continues):
                ``rnp`` on ``cuda`` on 48 requests (its host peel loop);
                0 fallbacks, 0 verify failures, ``segment_fused`` launched
                and the three off-path kernels not; then the batched kernel
-               against its plain version on a real stacked serve_m x 64
-               chunk, timed.
+               against its plain version on a real stacked chunk of each
+               cell (serve_xs, serve_s, serve_m x 64), timed as in phase 6.
 
 Phases 4, 7, 12 and 13 reset each op's launch count just before its calls
 and read it just after (it must be > 0), then time the kernel, its plain
@@ -67,6 +70,9 @@ version and, where one exists, the single PyTorch call that computes the
 same function, beside the least time the card could take.
 
 Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
+Every row's ``ms`` and ``library_ms`` are wrapper calls timed one after
+another with CUDA events; the ``segment_fused`` rows add their CUDA-graph
+times and their bound over live slots (``FUSED_EXTRA``).
 """
 
 from __future__ import annotations
@@ -106,6 +112,9 @@ REPLACES = {
     "wedge_intersect": "src/repro/kernels/wedge_intersect/kernel.py:43",
     "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:44",
 }
+#: Keys the kernels line's ``segment_fused`` rows carry beside the common
+#: ones (``fused_at``): the CUDA-graph times and the bound over live slots.
+FUSED_EXTRA = ("graph_ms", "library_graph_ms", "live_bound_ms")
 
 
 def phase(name: str, msg: str) -> None:
@@ -131,6 +140,36 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         fn()
     stop.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed: the time the card takes, without the host's cost
+    of launching each call (a call through a Python wrapper can cost the
+    host more than its kernel costs the card).  Warms up on a side stream
+    first, as capture requires."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(stop) / reps
 
 
@@ -490,71 +529,133 @@ def same_result(a: dict, b: dict) -> bool:
             and np.array_equal(a["members"], b["members"]))
 
 
-def kernel_at_full_size(res: dict, reps: int) -> dict:
-    """Phase 6: the kernel on the full-size plan with the real payload
-    columns of the reduce run's final state (S/deg sums, M/only maxes,
-    wbits/wnh ORs), against its plain version; times and bound."""
-    import numpy as np
+def fused_args(prob, state, schedule: str) -> dict:
+    """The kernel's keyword arguments for one sweep of ``schedule`` in
+    ``state``: the engine's own payload columns (S/deg sums, M/only maxes,
+    the wbits/wnh ORs where the schedule needs window bits), the plan's
+    r_blk and live extents, the window cap as or_nbits."""
+    from repro_torch.core import engine as E
+
+    plan, aux = prob.plan, prob.aux
+    req = E.schedule_requires(E.SCHEDULES[schedule])
+    _, _, dsum, dmax, dor = E.ctx_payloads(state, aux, req, window_bits=True,
+                                           plan=plan)
+    return dict(r_blk=plan.r_blk, data_sum=dsum, data_max=dmax, data_or=dor,
+                or_nbits=aux.window.shape[1], extent=plan.extent)
+
+
+def fused_at(label: str, prob, kw: dict, reps: int) -> dict:
+    """The kernel on a real plan (unbatched or stacked) against its plain
+    version, exactly, then timed.  ``ms`` and ``library_ms`` keep PR 15's
+    yardstick: the wrapper called one call after another, timed with CUDA
+    events (host launch cost included where the host is slower than the
+    card).  ``graph_ms`` and ``library_graph_ms`` replay the same calls
+    from a CUDA graph (the card's time alone).  The library call is
+    ``scatter_reduce`` over the union rows for the sum / max / min columns
+    (a yardstick the port never calls; torch has no OR reduce, so the OR
+    columns are left out of it).  Beside them two bounds: ``bound_ms``, PR
+    15's, reads lrow over every plan slot; ``live_bound_ms`` reads only
+    what the kernel must (each row block's extent, a live slot's row and
+    edge id, the payloads once, the outputs once)."""
     import torch
 
-    from repro_torch.core import engine as E
     from repro_torch.kernels.segment_coo import kernel as K
     from repro_torch.kernels.segment_coo.ops import segment_fused_plain
 
-    prob, state = res["prob"], res["state"]
     plan, aux = prob.plan, prob.aux
-    req = E.schedule_requires(E.SCHEDULES["cheap-fused"])
-    _, _, dsum, dmax, dor = E.ctx_payloads(state, aux, req,
-                                           window_bits=True, plan=plan)
-    n_rows = state.w.shape[0]
-    nbits = aux.window.shape[1]
-    kw = dict(r_blk=plan.r_blk, data_sum=dsum, data_max=dmax, data_or=dor,
-              or_nbits=nbits)
+    batch = plan.edge_perm.shape[0] if plan.edge_perm.dim() == 3 else 1
+    total = aux.gid.shape[0]
+    n_rows = total // batch
+    plain_kw = {k: v for k, v in kw.items() if k != "extent"}
     got = K.segment_fused(plan.edge_perm, plan.lrow, n_rows, **kw)
     torch.cuda.synchronize()
     err = max_abs_err(got, segment_fused_plain(plan.edge_perm, plan.lrow,
-                                               n_rows, **kw))
+                                               n_rows, **plain_kw))
     if err:
-        fail(f"kernel != plain version on the full-size plan ({err})")
-
-    n_blocks, e_blk = plan.edge_perm.shape
-    n_edges = dsum.shape[0]
-    live = int((plan.lrow < plan.r_blk).sum())
-    cols = dsum.shape[1] + dmax.shape[1] + dor.shape[1]
-    ms = cuda_ms(lambda: K.segment_fused(plan.edge_perm, plan.lrow, n_rows,
-                                         **kw), reps)
-    plain_ms = cuda_ms(lambda: segment_fused_plain(
-        plan.edge_perm, plan.lrow, n_rows, **kw), max(reps // 10, 2),
-        warmup=1)
-    # yardstick only (the port never calls it): scatter_reduce over the
-    # row-sorted COO for the same sum and max columns (torch has no OR
-    # reduce, so the OR columns are left out of it)
+        fail(f"{label}: kernel != plain version ({err})")
     row = aux.row.long()
-    isum = row[:, None].expand_as(dsum)
-    imax = row[:, None].expand_as(dmax)
+    i32 = torch.iinfo(torch.int32)
+    reduced = [(k, d, how, fill) for k, (d, how, fill) in enumerate((
+        (kw.get("data_sum"), "sum", 0), (kw.get("data_max"), "amax", i32.min),
+        (kw.get("data_min"), "amin", i32.max))) if d is not None]
 
     def library():
-        s = torch.zeros((n_rows, dsum.shape[1]), dtype=torch.int32,
-                        device=row.device)
-        m = torch.full((n_rows, dmax.shape[1]), torch.iinfo(torch.int32).min,
-                       dtype=torch.int32, device=row.device)
-        return (s.scatter_reduce_(0, isum, dsum, "sum"),
-                m.scatter_reduce_(0, imax, dmax, "amax"))
+        return [torch.full((total, d.shape[1]), fill, dtype=torch.int32,
+                           device=row.device).scatter_reduce_(
+                               0, row[:, None].expand_as(d), d, how)
+                for _, d, how, fill in reduced]
 
     lib = library()
     torch.cuda.synchronize()
-    if not (torch.equal(lib[0], got[0]) and torch.equal(lib[1], got[1])):
-        fail("scatter_reduce yardstick disagrees with the kernel")
-    library_ms = cuda_ms(library, reps)
-    # least bytes: lrow once, edge_perm for the live slots only, each live
-    # edge's payload row once, the [n_rows, cols] outputs once
-    n_bytes = 4 * (n_blocks * e_blk + live + n_edges * cols + n_rows * cols)
+    if not all(torch.equal(x, got[k]) for x, (k, *_) in zip(lib, reduced)):
+        fail(f"{label}: the scatter_reduce yardstick disagrees with the "
+             f"kernel")
+
+    groups = [kw.get(k) for k in ("data_sum", "data_max", "data_min",
+                                  "data_or")]
+    cols = sum(d.shape[1] for d in groups if d is not None)
+    n_edges = next(d.shape[0] for d in groups if d is not None)
+    e_blk = plan.lrow.shape[-1]
+    n_blocks = plan.lrow.numel() // e_blk
+    live = int(((plan.lrow >= 0) & (plan.lrow < plan.r_blk)).sum())
+    ext = plan.extent.long()
+    plan_bytes = 4 * (n_blocks * e_blk + live + n_edges * cols
+                      + total * cols)
+    live_bytes = 4 * (n_blocks + 2 * live + n_edges * cols + total * cols)
     n_ops = live * cols  # int32 add / max / min / or
-    out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               max_abs_err=err)
-    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops, "int32")
-    real = int((aux.gid[aux.row.long()] >= 0).sum())
+
+    def kernel():
+        return K.segment_fused(plan.edge_perm, plan.lrow, n_rows, **kw)
+
+    out = dict(ms=cuda_ms(kernel, reps), graph_ms=graph_ms(kernel, reps),
+               plain_ms=cuda_ms(lambda: segment_fused_plain(
+                   plan.edge_perm, plan.lrow, n_rows, **plain_kw),
+                   max(reps // 10, 2), warmup=1),
+               library_ms=cuda_ms(library, reps),
+               library_graph_ms=graph_ms(library, reps), max_abs_err=err)
+    out["bound_ms"], out["bound_by"] = bound(plan_bytes, n_ops, "int32")
+    out["live_bound_ms"], live_by = bound(live_bytes, n_ops, "int32")
+    phase(label, f"plan: batch={batch} n_blocks={n_blocks // batch} "
+                 f"r_blk={plan.r_blk} E_BLK={e_blk} "
+                 f"slots={n_blocks * e_blk} live_slots={live} "
+                 f"extent_max={int(ext.max())} "
+                 f"extent_mean={float(ext.float().mean()):.1f} "
+                 f"blocks_over_1024={int((ext > 1024).sum())} "
+                 f"edge_rows={n_edges} out_rows={total} payload_cols={cols} "
+                 f"max_abs_err={err} (tolerance 0, int32)")
+    phase(label, f"kernel_ms={out['ms']:.5f} (wrapper, one call after "
+                 f"another) graph_ms={out['graph_ms']:.5f} (CUDA graph) "
+                 f"plain_ms={out['plain_ms']:.5f} "
+                 f"scatter_reduce_ms={out['library_ms']:.5f} (called; "
+                 f"{out['library_graph_ms']:.5f} CUDA graph)")
+    phase(label, f"bound_live_ms={out['live_bound_ms']:.5f} ({live_by}: "
+                 f"{live_bytes} B, {n_ops} int32 ops) "
+                 f"bound_live/graph={out['live_bound_ms'] / out['graph_ms']:.4f} "
+                 f"bound_live/kernel={out['live_bound_ms'] / out['ms']:.4f} "
+                 f"bound_plan_ms={out['bound_ms']:.5f} ({out['bound_by']}: "
+                 f"{plan_bytes} B) "
+                 f"bound_plan/kernel={out['bound_ms'] / out['ms']:.4f} "
+                 f"kernel/scatter_reduce={out['ms'] / out['library_ms']:.4f} "
+                 f"graph/scatter_reduce_graph="
+                 f"{out['graph_ms'] / out['library_graph_ms']:.4f}")
+    return out
+
+
+def kernel_at_full_size(res: dict, reps: int) -> dict:
+    """Phase 6: the kernel on the full-size plan with the real payload
+    columns of the reduce run's final state (S/deg sums, M/only maxes,
+    wbits/wnh ORs), against its plain version; times and bounds, and the
+    padding each candidate r_blk would give the plan."""
+    import numpy as np
+
+    from repro_torch.core import engine as E
+
+    prob = res["prob"]
+    aux = prob.aux
     row_np = aux.row.cpu().numpy()
+    n_rows = aux.gid.shape[0]
+    live = row_np.shape[0]
+    real = int((aux.gid[aux.row.long()] >= 0).sum())
     for r in E.R_BLK_CANDIDATES:  # the packing census autotune chose from
         nb = -(-n_rows // r)
         eb = -(-int(np.bincount(row_np // r, minlength=nb).max())
@@ -562,18 +663,17 @@ def kernel_at_full_size(res: dict, reps: int) -> dict:
         phase("kernel-full", f"r_blk={r}: E_BLK={eb} slots={nb * eb} "
                              f"slots/live={nb * eb / live:.3f} "
                              f"slots/real_edges={nb * eb / real:.3f}")
-    phase("kernel-full", f"plan r_blk={plan.r_blk} n_blocks={n_blocks} "
-                         f"E_BLK={e_blk} slots={n_blocks * e_blk} "
-                         f"live_slots={live} real_edges={real} "
-                         f"padded/live={n_blocks * e_blk / live:.3f} "
-                         f"payload_cols={cols} n_rows={n_rows}")
-    phase("kernel-full", f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-                         f"scatter_reduce_ms={library_ms:.5f} "
-                         f"bound_ms={out['bound_ms']:.5f} "
-                         f"({out['bound_by']}: {n_bytes} B, {n_ops} "
-                         f"int32 ops) "
-                         f"max_abs_err={err} (tolerance 0, int32)")
-    return out
+    phase("kernel-full", f"real_edges={real}")
+    return fused_at("kernel-full", prob,
+                    fused_args(prob, res["state"], "cheap-fused"), reps)
+
+
+def kernel_at_rnp_plan(res: dict, reps: int) -> dict:
+    """Phase 9: the kernel on rnp's plan (the most launches of any shape)
+    with the edges-only sweep's columns of its final state; times and
+    bounds."""
+    return fused_at("kernel-rnp", res["prob"],
+                    fused_args(res["prob"], res["state"], "edges-only"), reps)
 
 
 def replay_seconds(res: dict, label: str) -> None:
@@ -850,88 +950,34 @@ def serve_run(opts, label: str, need_launches: bool, **over) -> dict:
     return out
 
 
-def batched_kernel_at_serve_m(svc, reqs, reps: int) -> dict:
-    """The batched kernel on a real stacked chunk: the service's first 64
-    serve_m requests stacked as it stacks them (its cached problems, its
-    E_BLK high-water mark), the payload columns of the first sweep; exact
-    against the plain version, timed beside its bound and scatter_reduce
-    over the flat union rows."""
-    import torch
-
-    from repro_torch.core import engine as E
+def serve_chunk(svc, reqs, cell_name: str):
+    """One cell's stacked chunk as the service stacks it: its first 64
+    requests of the cell (its cached problems, its E_BLK high-water mark)
+    on the service's device; returns (problem, first-sweep kernel
+    arguments)."""
     from repro_torch.core import rules as R
-    from repro_torch.kernels.segment_coo import kernel as K
-    from repro_torch.kernels.segment_coo.ops import segment_fused_plain
+    from repro_torch.core import serve as SV
 
-    cell = next(c for c in svc.cells if c.name == "serve_m")
+    cell = next(c for c in svc.cells if c.name == cell_name)
     idxs = [i for i, g in enumerate(reqs)
-            if g.n > 256 and g.num_directed_edges <= cell.E][:64]
-    topos, _ = svc._pack_requests(cell, idxs, reqs, [None] * len(reqs),
-                                  "cuda")
-    rec = dict(pack_ms=0.0, transfer_ms=0.0)
-    prob = svc._stage_chunk(cell, topos, "cuda", rec).prob
-    plan, aux = prob.plan, prob.aux
+            if SV.bucket_for(g.n, g.num_directed_edges, svc.cells) is cell]
+    topos, _ = svc._pack_requests(cell, idxs[:64], reqs, [None] * len(reqs),
+                                  svc.cfg.backend)
+    prob = svc._stage_chunk(cell, topos, svc.cfg.backend,
+                            dict(pack_ms=0.0, transfer_ms=0.0)).prob
     state = R.init_state(prob.w0, prob.is_local, prob.is_ghost)
-    req = E.schedule_requires(E.SCHEDULES[cell.schedule])
-    _, _, dsum, dmax, dor = E.ctx_payloads(state, aux, req,
-                                           window_bits=True, plan=plan)
-    batch, n_blocks, e_blk = plan.edge_perm.shape
-    V = prob.V
-    kw = dict(r_blk=plan.r_blk, data_sum=dsum, data_max=dmax, data_or=dor,
-              or_nbits=aux.window.shape[1])
-    got = K.segment_fused(plan.edge_perm, plan.lrow, V, **kw)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, segment_fused_plain(plan.edge_perm, plan.lrow,
-                                               V, **kw))
-    if err:
-        fail(f"batched kernel != plain version at serve_m x {batch} ({err})")
-    row = aux.row.long()
+    return prob, fused_args(prob, state, cell.schedule)
 
-    def library():  # yardstick only: scatter_reduce over the union rows
-        s_ = torch.zeros((batch * V, dsum.shape[1]), dtype=torch.int32,
-                         device=row.device)
-        m_ = torch.full((batch * V, dmax.shape[1]),
-                        torch.iinfo(torch.int32).min, dtype=torch.int32,
-                        device=row.device)
-        return (s_.scatter_reduce_(0, row[:, None].expand_as(dsum), dsum,
-                                   "sum"),
-                m_.scatter_reduce_(0, row[:, None].expand_as(dmax), dmax,
-                                   "amax"))
 
-    lib = library()
-    torch.cuda.synchronize()
-    if not (torch.equal(lib[0], got[0]) and torch.equal(lib[1], got[1])):
-        fail("scatter_reduce yardstick disagrees with the batched kernel")
-    n_edges = dsum.shape[0]
-    live = int((plan.lrow < plan.r_blk).sum())
-    real = int((aux.gid[row] >= 0).sum())
-    cols = dsum.shape[1] + dmax.shape[1] + dor.shape[1]
-    phase("serve-kernel", f"serve_m x {batch}: V={V} n_blocks={n_blocks} "
-                          f"thread_blocks={batch * n_blocks} E_BLK={e_blk} "
-                          f"slots={batch * n_blocks * e_blk} "
-                          f"live_slots={live} real_edges={real} "
-                          f"edge_rows={n_edges} out_rows={batch * V} "
-                          f"payload_cols={cols} max_abs_err={err} "
-                          f"(tolerance 0, int32)")
-    # least bytes and operations as in phase 6: every plan slot's lrow,
-    # each live slot's edge id, the payloads once, the outputs once
-    t = timings("serve-kernel", lambda: K.segment_fused(
-                    plan.edge_perm, plan.lrow, V, **kw),
-                lambda: segment_fused_plain(plan.edge_perm, plan.lrow, V,
-                                            **kw),
-                library, reps,
-                4 * (batch * n_blocks * e_blk + live + n_edges * cols
-                     + batch * V * cols),
-                live * cols, "int32")
-    # the reduction's own work, without the plan's padding slots: a live
-    # slot's edge id and row, the payloads, the outputs
-    live_bytes = 4 * (2 * live + n_edges * cols + batch * V * cols)
-    live_ms, live_by = bound(live_bytes, live * cols, "int32")
-    phase("serve-kernel", f"bound without padding slots: "
-                          f"bound_live_ms={live_ms:.5f} ({live_by}: "
-                          f"{live_bytes} B) "
-                          f"bound_live/kernel={live_ms / t['ms']:.4f}")
-    return dict(t, max_abs_err=err)
+def batched_kernel_at(svc, reqs, cell_name: str, reps: int) -> dict:
+    """The batched kernel on a real stacked chunk of one cell (the payload
+    columns of the first sweep): exact against the plain version, timed
+    beside its bounds and scatter_reduce over the flat union rows."""
+    prob, kw = serve_chunk(svc, reqs, cell_name)
+    real = int((prob.aux.gid[prob.aux.row.long()] >= 0).sum())
+    label = f"serve-kernel {cell_name} x {prob.plan.edge_perm.shape[0]}"
+    phase(label, f"V={prob.V} real_edges={real}")
+    return fused_at(label, prob, kw, reps)
 
 
 def serve_row(rec: dict) -> dict:
@@ -945,7 +991,7 @@ def serve_row(rec: dict) -> dict:
         replaces=REPLACES["segment_fused"],
         **{key: rec[key] for key in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")},
+            "bound_by", "library_ms", *FUSED_EXTRA)},
     )
 
 
@@ -982,8 +1028,10 @@ def serve_phase(opts) -> dict:
     svc, first = rg["service"], rg["requests"][:64]
     device_profile("serve rg/cuda, one batch of 64 (3 chunks)",
                    lambda: svc.solve_batch(first), top=8)
-    kern = batched_kernel_at_serve_m(rg["service"], rg["requests"],
-                                     opts.reps)
+    for name in ("serve_xs", "serve_s"):
+        batched_kernel_at(rg["service"], rg["requests"], name, opts.reps)
+    kern = batched_kernel_at(rg["service"], rg["requests"], "serve_m",
+                             opts.reps)
     kern["launches"] = rg["launches"] + gr["launches"] + rnp["launches"]
     phase("serve", f"phase seconds={time.time() - t0:.1f}")
     return kern
@@ -1077,6 +1125,7 @@ def main() -> None:
     rnp = drive(small, g2, pg2, "rnp-cut", True, algo="rnp",
                 schedule="edges-only")
     replay_seconds(rnp, "rnp/edges-only (cut)")
+    kernel_at_rnp_plan(rnp, opts.reps)
     launches += rnp["launches"]
 
     import numpy as np
@@ -1111,7 +1160,8 @@ def main() -> None:
         source=str(sources[0].relative_to(ROOT)), replaces=REPLACES[name],
         **{key: found[name][key] for key in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")},
+            "bound_by", "library_ms",
+            *(FUSED_EXTRA if name == "segment_fused" else ()))},
     ) for name, (_, sources) in libs.items()]
     rows.append(serve_row(sk))
     phase("done", f"total {time.time() - t_start:.1f}s")

@@ -43,15 +43,18 @@ def halo(src, device: torch.device | str = "cpu") -> X.Halo:
 
 def seg_plan(src, device: torch.device | str = "cpu") -> E.SegPlan:
     """The reference carries the row-block height as the leading dimension
-    of a zero-size ``rblk_tpl`` array; the port keeps it as an int."""
+    of a zero-size ``rblk_tpl`` array; the port keeps it as an int.  The
+    live extents, which the reference has no field for, are derived from
+    ``lrow``."""
     def opt(a):
         return None if a is None else tensor(a, device)
 
+    lrow = tensor(src.lrow, device)
+    r_blk = int(np.shape(src.rblk_tpl)[0])
     return E.SegPlan(
-        edge_perm=tensor(src.edge_perm, device),
-        lrow=tensor(src.lrow, device),
-        r_blk=int(np.shape(src.rblk_tpl)[0]),
+        edge_perm=tensor(src.edge_perm, device), lrow=lrow, r_blk=r_blk,
         wbits=opt(src.wbits), wnh=opt(src.wnh),
+        extent=E.live_extent(lrow, r_blk),
     )
 
 

@@ -41,7 +41,7 @@ from repro_torch.kernels.segment_coo.ops import (
     pack_blocks, segment_fused_coo, segment_fused_plain,
 )
 from repro_torch.kernels.segment_coo.ref import (
-    segment_max, segment_min, segment_or_ref, segment_sum,
+    live_extent, segment_max, segment_min, segment_or_ref, segment_sum,
 )
 from repro_torch.kernels.wedge_intersect import ops as W
 
@@ -129,11 +129,17 @@ class SegPlan(NamedTuple):
     leading axis — ``edge_perm`` / ``lrow`` ``[B, n_blocks, E_BLK]`` with
     per-instance edge ids — and its ``wbits`` / ``wnh`` are the instances'
     payloads one after another, ``[B*E]``: the union edge order of a
-    stacked problem (``distributed.stack_problems``)."""
+    stacked problem (``distributed.stack_problems``).
+
+    ``extent`` is derived from ``lrow`` (:func:`live_extent`): one past
+    each row block's last live slot, so the kernel reads none of the
+    padding after it.  ``edge_perm`` / ``lrow`` stay the reference's
+    arrays."""
 
     edge_perm: torch.Tensor   # [(B,) n_blocks, E_BLK] i32
     lrow: torch.Tensor        # [(B,) n_blocks, E_BLK] i32 (r_blk = padding)
     r_blk: int                # row-block height
+    extent: torch.Tensor      # [(B,) n_blocks] i32 live extents
     wbits: Optional[torch.Tensor] = None  # [(B*)E] i32 window-position bits
     wnh: Optional[torch.Tensor] = None    # [(B*)E] i32 clique-violation masks
 
@@ -221,8 +227,9 @@ def build_plan(
     if window is not None:
         wb, wn = _window_payloads(row, col, gid, window, win_adj_bits)
         wbits, wnh = dev(wb), dev(wn)
-    return SegPlan(edge_perm=dev(perm), lrow=dev(lrow), r_blk=r_blk,
-                   wbits=wbits, wnh=wnh)
+    lrow = dev(lrow)
+    return SegPlan(edge_perm=dev(perm), lrow=lrow, r_blk=r_blk,
+                   wbits=wbits, wnh=wnh, extent=live_extent(lrow, r_blk))
 
 
 # --------------------------------------------------------------------- #
@@ -360,7 +367,8 @@ def pad_plan(plan: SegPlan, e_blk: int) -> SegPlan:
 
     Padding slots follow the :func:`pack_blocks` convention — edge 0 with
     ``lrow = r_blk`` — which every blocked path ignores, so a padded plan
-    gives the original's results bit for bit."""
+    gives the original's results bit for bit.  They come after every live
+    slot, so the live extents stay as they are."""
     nb, eb = plan.edge_perm.shape
     if eb > e_blk:
         raise ValueError(f"cannot shrink plan E_BLK {eb} -> {e_blk}")
@@ -415,6 +423,7 @@ def stack_plans(plans: Sequence[SegPlan],
         r_blk=r_blk,
         wbits=torch.cat([p.wbits for p in padded]) if has_w[0] else None,
         wnh=torch.cat([p.wnh for p in padded]) if has_w[0] else None,
+        extent=torch.stack([p.extent for p in padded]),
     )
 
 
@@ -465,7 +474,11 @@ def aggregate(
     else:
         if plan is None:
             raise ValueError(f"backend {backend!r} needs a SegPlan")
-        fused = segment_fused_coo if backend == "cuda" else segment_fused_plain
+        kw = dict(data_sum=d_sum, data_max=d_max, data_min=d_min,
+                  data_or=d_or, or_nbits=or_nbits, r_blk=plan.r_blk)
+        fused = segment_fused_plain
+        if backend == "cuda":
+            fused, kw["extent"] = segment_fused_coo, plan.extent
         rows = n_rows
         if plan.edge_perm.dim() == 3:
             batch = plan.edge_perm.shape[0]
@@ -473,11 +486,7 @@ def aggregate(
                 raise ValueError(f"n_rows={n_rows} does not split into the "
                                  f"stacked plan's {batch} instances")
             rows = n_rows // batch
-        outs = fused(
-            plan.edge_perm, plan.lrow, rows,
-            data_sum=d_sum, data_max=d_max, data_min=d_min, data_or=d_or,
-            or_nbits=or_nbits, r_blk=plan.r_blk,
-        )
+        outs = fused(plan.edge_perm, plan.lrow, rows, **kw)
     return tuple(
         o[:, 0] if o is not None and sq else o
         for o, sq in zip(outs, squeeze)

@@ -6,10 +6,11 @@ sum / max / min / OR, ``csrc/segment_fused.cu``), ``segment_sum`` that of
 ``segment_sum_blocked`` (float32 / bfloat16 sums, ``csrc/segment_sum.cu``);
 each source says how it is laid out and what bounds it.  Both take the
 *unblocked* ``[E, D]`` payloads and gather them through ``edge_perm``
-inside the kernel.  ``segment_fused`` also takes a batch of plans stacked
-on a leading axis (the serving layer's stacked problems), one grid axis per
-instance.  CUDA tensors of the listed types only: anything else raises,
-there is no fallback.  The plain versions are
+inside the kernel.  ``segment_fused`` also takes each row block's live
+extent (one past its last live slot, ``engine.SegPlan.extent``) and stops
+there, and a batch of plans stacked on a leading axis (the serving layer's
+stacked problems), one grid axis per instance.  CUDA tensors of the listed
+types only: anything else raises, there is no fallback.  The plain versions are
 :func:`repro_torch.kernels.segment_coo.ref.segment_fused_blocked_ref` and
 :func:`~repro_torch.kernels.segment_coo.ref.segment_sum_blocked_ref`.
 """
@@ -23,6 +24,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import check, launch, load, require_cuda
+from repro_torch.kernels.segment_coo.ref import live_extent
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: Each kernel's (library name, sources), for ``kernels.build_many``.
@@ -31,7 +33,7 @@ LIBS = {
     "segment_sum": ("segment_sum", (_CSRC / "segment_sum.cu",)),
 }
 _ARGTYPES = {
-    "segment_fused": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+    "segment_fused": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
     "segment_sum": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
@@ -99,10 +101,17 @@ def segment_fused(
     data_min: torch.Tensor | None = None,   # [(B*)E, Dn] i32
     data_or: torch.Tensor | None = None,    # [(B*)E, Do] i32
     or_nbits: int = 16,
+    extent: torch.Tensor | None = None,     # [(B,) n_blocks] i32
 ):
     """Launch the kernel on the current stream; returns a (sum, max, min,
     or) tuple of [n_rows, D*] int32 tensors (None for absent groups).
     Does not synchronise.
+
+    ``extent`` is one past each row block's last live slot (the plan's
+    ``SegPlan.extent``, which every plan carries); the kernel reads no
+    slot after it.  A bare call without it (``ops.segment_fused_coo`` on
+    arrays that are not a ``SegPlan``) derives it from ``lrow`` on the
+    device (:func:`live_extent`), a sweep of every slot on each call.
 
     A 3-D plan is a batch of B plans of one shape (``engine.stack_plans``):
     instance b's edge ids index payload rows [b*E, (b+1)*E) with
@@ -119,6 +128,11 @@ def segment_fused(
     if not 0 < batch <= _MAX_BATCH:
         raise ValueError(f"batch {batch} outside (0, {_MAX_BATCH}]")
     n_blocks, e_blk = edge_perm.shape[-2:]
+    if extent is not None:
+        check("extent", extent, device, edge_perm.dim() - 1)
+        if extent.shape != edge_perm.shape[:-1]:
+            raise ValueError(f"extent {tuple(extent.shape)} != the plan's "
+                             f"row blocks {tuple(edge_perm.shape[:-1])}")
     n_edges = None
     for name, d in zip(("data_sum", "data_max", "data_min", "data_or"),
                        groups):
@@ -138,6 +152,8 @@ def segment_fused(
         raise ValueError(f"r_blk={r_blk} x {sum(widths)} payload columns "
                          f"needs {smem} B of shared memory (> {_SMEM_LIMIT})")
     require_cuda("segment_fused", device)
+    if extent is None:
+        extent = live_extent(lrow, r_blk)
     outs = [
         None if d is None else torch.empty(
             (batch * n_rows, d.shape[1]), dtype=torch.int32, device=device
@@ -149,7 +165,7 @@ def segment_fused(
         return None if t is None else t.data_ptr()
 
     launch("segment_fused", _launcher("segment_fused"), device,
-           edge_perm.data_ptr(), lrow.data_ptr(),
+           edge_perm.data_ptr(), lrow.data_ptr(), extent.data_ptr(),
            *(ptr(d) for d in groups), *(ptr(o) for o in outs),
            batch, n_blocks, e_blk, r_blk, n_rows, n_edges // batch, *widths,
            or_nbits)

@@ -128,10 +128,16 @@ def segment_fused_coo(
     data_or: torch.Tensor | None = None,    # [E, Do] payloads to bitwise-OR
     or_nbits: int = 16,                     # bit width of the OR payloads
     r_blk: int = 8,
+    extent: torch.Tensor | None = None,     # [n_blocks] live extents
 ):
     """Fused blocked segment sum+max+min+or over one packed edge list;
     returns a (sum, max, min, or) tuple of [n_rows, D*] tensors (None where
     the payload group is absent).
+
+    ``extent`` (``engine.SegPlan.extent``: one past each row block's last
+    live slot) lets the kernel stop there; without it the kernel's wrapper
+    derives it on each call (a sweep of every slot).  It does not change
+    the result, and the plain version does not read it.
 
     A 3-D plan ``[B, n_blocks, E_BLK]`` is a batch of B same-shape plans
     (``engine.stack_plans``): payloads are [B*E, D*] with instance b's edges
@@ -146,6 +152,7 @@ def segment_fused_coo(
         raise ValueError("segment_fused_coo needs at least one payload")
     kw = dict(data_sum=data_sum, data_max=data_max, data_min=data_min,
               data_or=data_or, or_nbits=or_nbits, r_blk=r_blk)
-    if device_kind("segment_fused_coo", edge_perm, lrow, *groups) == "cuda":
-        return K.segment_fused(edge_perm, lrow, n_rows, **kw)
+    if device_kind("segment_fused_coo", edge_perm, lrow, extent,
+                   *groups) == "cuda":
+        return K.segment_fused(edge_perm, lrow, n_rows, extent=extent, **kw)
     return segment_fused_plain(edge_perm, lrow, n_rows, **kw)

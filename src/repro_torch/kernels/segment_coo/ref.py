@@ -93,6 +93,17 @@ def _block_segments(lrow: torch.Tensor, r_blk: int):
     return seg, n_blocks * (r_blk + 1)
 
 
+def live_extent(lrow: torch.Tensor, r_blk: int) -> torch.Tensor:
+    """One past the last live slot of each row block of a blocked plan:
+    ``[(B,) n_blocks, E_BLK]`` local rows → ``[(B,) n_blocks]`` int32 (0 for
+    a block with no live slot; a slot is live where 0 <= lrow < r_blk).
+    Every slot from it on is padding, so a kernel may stop there."""
+    live = (lrow >= 0) & (lrow < r_blk)
+    pos = torch.arange(1, lrow.shape[-1] + 1, dtype=torch.int32,
+                       device=lrow.device)
+    return torch.where(live, pos, 0).amax(-1).to(torch.int32)
+
+
 def segment_sum_blocked_ref(
     data: torch.Tensor,   # [n_blocks, E_BLK, D] gathered float payloads
     lrow: torch.Tensor,   # [n_blocks, E_BLK] (R_BLK = padding)

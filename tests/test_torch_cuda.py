@@ -139,6 +139,135 @@ def test_batch_of_one_is_the_unbatched_launch(cuda, n_rows, n_edges, r_blk):
                     assert torch.equal(g[b * n_rows:(b + 1) * n_rows], w)
 
 
+def _assert_exact(got, want):
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert torch.equal(g, w)
+
+
+def _int_payloads(rng, n_edges, widths, device):
+    """Random int32 payload groups (OR payloads carry every bit, so the
+    or_nbits mask is exercised)."""
+    names = ("data_sum", "data_max", "data_min", "data_or")
+    return {
+        k: torch.from_numpy(
+            rng.integers(-(1 << 31), 1 << 31, size=(n_edges, d))
+            .astype(np.int32)).to(device)
+        for k, d in zip(names, widths) if d
+    }
+
+
+def _fused_both_ways(plan, n_rows, data, or_nbits=16):
+    """The kernel with the plan's extent and with the one its wrapper
+    derives, each exact against the plain version."""
+    kw = dict(r_blk=plan.r_blk, or_nbits=or_nbits, **data)
+    want = segment_fused_plain(plan.edge_perm, plan.lrow, n_rows, **kw)
+    for extent in (plan.extent, None):
+        before = kernels.launch_count("segment_fused")
+        got = segment_fused_coo(plan.edge_perm, plan.lrow, n_rows,
+                                extent=extent, **kw)
+        torch.cuda.synchronize()
+        assert kernels.launch_count("segment_fused") == before + 1
+        _assert_exact(got, want)
+
+
+@pytest.mark.parametrize("batch", [0, 1, 8])
+@pytest.mark.parametrize("n_rows,n_edges,r_blk",
+                         SERVE_SHAPES + [(4000, 60000, 64)])
+def test_kernel_on_a_nil_heavy_plan(cuda, n_rows, n_edges, r_blk, batch):
+    """80 % of each instance's edges on its last row, as a partition puts
+    its padding edges on the nil row: that row block holds up to 48,000
+    slots of one row (serve_m: 13,107), folded within warps and split over
+    thread blocks.  Unbatched (batch 0) and stacked, exact."""
+    rng = np.random.default_rng(7 * batch + r_blk)
+    plans = []
+    for _ in range(max(batch, 1)):
+        row = rng.integers(0, n_rows, size=n_edges)
+        row[: n_edges * 4 // 5] = n_rows - 1
+        plans.append(E.build_plan(np.sort(row).astype(np.int32), n_rows,
+                                  r_blk=r_blk, device=cuda))
+    plan = E.stack_plans(plans) if batch else plans[0]
+    data = _int_payloads(rng, max(batch, 1) * n_edges, (2, 2, 1, 2), cuda)
+    _fused_both_ways(plan, n_rows, data, or_nbits=16)
+
+
+def _hand_plan(rng, n_rows, r_blk, e_blk, device):
+    """A plan built by hand: live slots of any row in any order, padding
+    (r_blk, negative, above r_blk) among and after them, a block with no
+    live slot, and every slot's edge id random."""
+    n_blocks = -(-n_rows // r_blk)
+    lrow = rng.integers(0, r_blk, size=(n_blocks, e_blk)).astype(np.int32)
+    pad = rng.random((n_blocks, e_blk)) < 0.3
+    lrow[pad] = rng.choice(np.array([r_blk, -1, r_blk + 5], np.int32),
+                           size=int(pad.sum()))
+    lrow[0, e_blk // 2:] = r_blk
+    lrow[1] = -1
+    lrow[-1][lrow[-1] >= n_rows - (n_blocks - 1) * r_blk] = r_blk
+    n_edges = 3 * e_blk
+    perm = rng.integers(0, n_edges, size=(n_blocks, e_blk)).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    lrow = t(lrow)
+    return E.SegPlan(edge_perm=t(perm), lrow=lrow, r_blk=r_blk,
+                     extent=E.live_extent(lrow, r_blk)), n_edges
+
+
+@pytest.mark.parametrize("e_blk", [40, 5000, 20000])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernel_skips_padding_inside_blocks(cuda, e_blk, seed):
+    """Padding inside a block's extent is skipped by its local row; the
+    extent is one past the last live slot, not a count of live slots."""
+    rng = np.random.default_rng(seed)
+    plan, n_edges = _hand_plan(rng, 45, 8, e_blk, cuda)
+    live = ((plan.lrow >= 0) & (plan.lrow < 8)).sum(1)
+    assert bool((plan.extent > live).any())
+    _fused_both_ways(plan, 45, _int_payloads(rng, n_edges, (2, 2, 1, 2),
+                                             cuda))
+
+
+@pytest.mark.parametrize("run", [1000, 3001, 4096, 4097])
+def test_kernel_rows_across_chunk_boundaries(cuda, run):
+    """One row block of 20,000 live slots in runs of ``run`` slots cycling
+    over rows 0..3 (so a row recurs in runs that are not neighbours, and
+    runs straddle every 1,024 / 2,048 / 4,096-slot boundary), beside a
+    block of ordinary rows; unbatched and a batch of 3."""
+    rng = np.random.default_rng(run)
+    r_blk, e_blk = 4, 20000
+    heavy = (np.arange(e_blk) // run % r_blk).astype(np.int32)
+    light = np.full(e_blk, r_blk, dtype=np.int32)
+    light[:50] = np.sort(rng.integers(0, r_blk, size=50))
+    for batch in (0, 3):
+        lrow = np.stack([heavy, light])
+        perm = rng.permutation(2 * e_blk)[:2 * e_blk].reshape(2, e_blk)
+        if batch:
+            lrow = np.stack([lrow] * batch)
+            perm = np.stack([perm] * batch)
+        lrow_t = torch.from_numpy(lrow).to(cuda)
+        plan = E.SegPlan(
+            edge_perm=torch.from_numpy(perm.astype(np.int32)).to(cuda),
+            lrow=lrow_t, r_blk=r_blk, extent=E.live_extent(lrow_t, r_blk))
+        data = _int_payloads(rng, max(batch, 1) * 2 * e_blk, (2, 1, 1, 1),
+                             cuda)
+        _fused_both_ways(plan, 2 * r_blk, data)
+
+
+@pytest.mark.parametrize("widths", [(2, 2, 2, 2), (3, 1, 2, 5),
+                                    (0, 0, 0, 1)])
+@pytest.mark.parametrize("or_nbits", [1, 16, 31])
+def test_kernel_all_groups_and_or_widths(cuda, widths, or_nbits):
+    """Every payload group, widths past the columns a lane loads at once,
+    and OR payloads cut to 1, 16 and 31 bits, on a nil-heavy serve_m plan
+    (the heavy block split): exact."""
+    rng = np.random.default_rng(or_nbits)
+    n_rows, n_edges, r_blk = 1029, 16384, 32
+    row = rng.integers(0, n_rows, size=n_edges)
+    row[: n_edges * 4 // 5] = n_rows - 1
+    plan = E.build_plan(np.sort(row).astype(np.int32), n_rows, r_blk=r_blk,
+                        device=cuda)
+    _fused_both_ways(plan, n_rows, _int_payloads(rng, n_edges, widths, cuda),
+                     or_nbits=or_nbits)
+
+
 @pytest.mark.parametrize("algo", ["rg", "rnp"])
 def test_batched_serving_on_cuda_matches_torch(cuda, algo):
     """The serving path on the card (stacked plans, the kernel's batch axis)
