@@ -58,11 +58,27 @@ continues):
                batches of 64, ``rg`` on ``cuda`` (verify full) and on
                ``torch`` (must agree per request bit for bit), ``greedy`` on
                ``cuda`` (each result the sequential priority greedy's),
-               ``rnp`` on ``cuda`` on 48 requests (its host peel loop);
-               0 fallbacks, 0 verify failures, ``segment_fused`` launched
-               and the three off-path kernels not; then the batched kernel
-               against its plain version on a real stacked chunk of each
-               cell (serve_xs, serve_s, serve_m x 64), timed as in phase 6.
+               ``rnp`` on ``cuda`` on 48 requests (its host peel loop),
+               ``rg`` on ``cuda`` with ``--descent auto`` (its serve_m
+               requests one at a time through the staged solver; each
+               result must equal the ``--descent off`` run's), then 4
+               oversize GNM requests (n = 0.8 x 16,384) admitted through
+               ``descent_xl``; 0 fallbacks, 0 verify failures,
+               ``segment_fused`` launched and the three off-path kernels
+               not; then the batched kernel against its plain version on a
+               real stacked chunk of each cell (serve_xs, serve_s, serve_m
+               x 64), timed as in phase 6;
+ 15. descent — ``solvers.solve_staged`` with shape descent on phase 5's
+               partition (rg/edges-only on ``cuda``, ``default_ladder()``):
+               members equal to phase 5's rg run bit for bit; descents,
+               path and the time of each stage; ``segment_fused`` launched,
+               the three off-path kernels not;
+ 16. resume  — the same staged solve with a checkpoint manager, killed by
+               an ``InjectedFault`` after its first descent, then resumed
+               from the checkpoint: members equal to phase 15's; then the
+               kernel on the last rung's plan (restored from the resumed
+               run's last checkpoint, the payload columns of the rung's
+               first sweep) against its plain version, timed as in phase 6.
 
 Phases 4, 7, 12 and 13 reset each op's launch count just before its calls
 and read it just after (it must be > 0), then time the kernel, its plain
@@ -950,6 +966,193 @@ def serve_run(opts, label: str, need_launches: bool, **over) -> dict:
     return out
 
 
+def serve_descent(opts, off: dict) -> dict:
+    """Phase 14's descent run: the same stream with ``--descent auto``
+    (each request equal to the ``--descent off`` run ``off``), then 4
+    oversize requests admitted through ``descent_xl``, verified."""
+    import numpy as np
+
+    from repro_torch.core import serve as SV
+    from repro_torch.graphs.generators import gnm
+
+    dsc = serve_run(opts, "rg cuda descent=auto", True, algo="rg",
+                    backend="cuda", requests=192, verify="full",
+                    descent="auto")
+    for i, (a, b) in enumerate(zip(dsc["results"], off["results"])):
+        if a.weight != b.weight or not np.array_equal(a.members, b.members):
+            fail(f"serve: descent auto and off disagree on request {i}")
+    svc = dsc["service"]
+    st = svc.stats
+    if st["descent_solves"] <= 0:
+        fail("serve: descent auto sent no request through the staged path")
+    tp, tp_off = dsc["throughput"], off["throughput"]
+    phase("serve", f"rg cuda descent auto == off: members and weight of "
+                   f"all {len(dsc['results'])} requests identical; "
+                   f"descent_solves={st['descent_solves']} "
+                   f"descents={st['descents']} "
+                   f"cache_descent_hits={st['cache_descent_hits']} "
+                   f"cache_descent_misses={st['cache_descent_misses']}; "
+                   f"inst_per_s={tp['instances_per_sec']} (off "
+                   f"{tp_off['instances_per_sec']}) p50_ms={tp['p50_ms']} "
+                   f"(off {tp_off['p50_ms']}) p99_ms={tp['p99_ms']} (off "
+                   f"{tp_off['p99_ms']})")
+    xl = next(c for c in SV.descent_entry_cells() if c.name == "descent_xl")
+    n = int(0.8 * xl.L)
+    m = min(2 * n, xl.E // 4)
+    big = [gnm(n, m, seed=opts.seed + k) for k in range(4)]
+    if any(SV.bucket_for(g.n, g.num_directed_edges,
+                         svc.descent_cells).name != xl.name for g in big):
+        fail("serve: the oversize requests do not enter at descent_xl")
+    before = dict(st)
+    t0 = time.time()
+    res = svc.solve_batch(big)
+    dt = time.time() - t0
+    st = svc.stats
+    grew = {k: st[k] - before[k] for k in (
+        "oversize_admitted", "descent_solves", "descents",
+        "verify_checked", "verify_failures", "solve_errors", "fallbacks")}
+    phase("serve", f"oversize n={n} m={m} x {len(big)} via descent_xl: "
+                   f"{grew} weights={[r.weight for r in res]} "
+                   f"seconds={dt:.2f}")
+    if (grew["oversize_admitted"] != len(big)
+            or grew["verify_checked"] != len(big)
+            or grew["verify_failures"] or grew["solve_errors"]
+            or grew["fallbacks"] or not all(r.ok for r in res)):
+        fail(f"serve: the oversize requests were not all admitted, solved "
+             f"and verified ({grew}, {[r.error for r in res if not r.ok]})")
+    return dsc
+
+
+def staged_config(base):
+    """Phase 15's configuration: phase 5's rg run with shape descent on."""
+    from repro_torch.core import distributed as D
+
+    return D.DisReduConfig(heavy_k=base.heavy_k, mode=base.mode,
+                           schedule="edges-only", backend="cuda",
+                           descent=True)
+
+
+def staged_solve(base, g, pg, label: str, **kw):
+    """One ``solve_staged`` rg run on phase 5's partition, launch counts
+    reset just before and read just after; returns (members, stats,
+    seconds, segment_fused launches)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import solvers as S
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    members, st = S.solve_staged(g, base.p, "rg", staged_config(base),
+                                 pg=pg, device="cuda", **kw)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = launch_counts()
+    launches = counts.pop("segment_fused")
+    path = " -> ".join(f"{e['cell']}(L={e['L']},E={e['E']})"
+                       for e in st["path"])
+    phase(label, f"rg/edges-only/cuda staged: descents={st['descents']} "
+                 f"path={path} seconds={dt:.3f} "
+                 f"(t_total={st['t_total']:.3f} "
+                 f"t_descend={st['t_descend']:.3f}) "
+                 f"kernel_ratio={st['kernel_ratio']:.4f} "
+                 f"kernel_launches={launches} "
+                 f"off_path_kernel_launches={sum(counts.values())}")
+    if launches <= 0:
+        fail(f"{label}: the staged solve never launched segment_fused")
+    if any(counts.values()):
+        fail(f"{label}: a kernel off the MWIS path launched: {counts}")
+    if not g.is_independent_set(members):
+        fail(f"{label}: the member set is not independent")
+    return members, st, dt, launches
+
+
+def descent_phase(base, g, pg, rg_members, rg_seconds: float) -> dict:
+    """Phase 15: the staged rg solve with shape descent on phase 5's
+    partition, bit for bit against phase 5's rg members; each stage's
+    time."""
+    import numpy as np
+
+    from repro_torch.core import solvers as S
+
+    members, st, dt, launches = staged_solve(base, g, pg, "descent",
+                                             trajectory=True)
+    for s in st["stages"]:
+        check = {k: s[k] for k in ("check_us", "compact_us", "pack_us",
+                                   "plan_slots") if k in s}
+        phase("descent", f"stage {s['phase']} on {s['shape']} (L={s['L']}) "
+                         f"rounds={s['rounds']} alive={s['alive']} "
+                         f"us={s['us']} need={s.get('need')} {check}")
+    phase("descent", f"staged total {dt:.3f}s against phase 5's rg "
+                     f"{rg_seconds:.3f}s (both with the union build)")
+    if not np.array_equal(members, rg_members):
+        fail("descent: the staged solve's members != phase 5's rg members")
+    phase("descent", "members == phase 5's rg run, bit for bit")
+    if st["descents"] == 0:
+        ladder = ", ".join(f"{c.name}(L={c.L},E={c.E})"
+                           for c in S.default_ladder())
+        phase("descent", f"finding: no descent at this size; each stage's "
+                         f"need above against the ladder: {ladder}")
+    return dict(members=members, stats=st, launches=launches)
+
+
+def resume_phase(base, g, pg, staged: dict, reps: int) -> dict:
+    """Phase 16: kill the staged solve after its first descent, resume it
+    from its checkpoint (bit for bit against phase 15), then the kernel on
+    the last rung's plan; returns the kernel's record."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import solvers as S
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.fault import InjectedFault
+
+    root = ROOT / "build" / "resume_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        ck = CheckpointManager(str(root), keep=16)
+
+        def kill(descents, cell):
+            raise InjectedFault(f"killed after descent {descents} to {cell}")
+
+        t0 = time.time()
+        try:
+            staged_solve(base, g, pg, "resume", ckpt=ck, on_descent=kill)
+        except InjectedFault as e:
+            phase("resume", f"{e} after {time.time() - t0:.3f}s")
+        else:
+            fail("resume: the staged solve took no descent to kill after")
+        ck.wait()
+        step = root / f"step_{ck.latest_step():09d}"
+        size = sum(f.stat().st_size for f in step.iterdir())
+        phase("resume", f"checkpoint step {ck.latest_step()}: {size} bytes "
+                        f"in {len(list(step.iterdir()))} files")
+        members, st, dt, _ = staged_solve(base, g, pg, "resume", ckpt=ck,
+                                          resume=True)
+        phase("resume", f"resumed solve {dt:.3f}s (union build and "
+                        f"compaction replay included)")
+        if (not np.array_equal(members, staged["members"])
+                or st["path"] != staged["stats"]["path"]):
+            fail("resume: the resumed solve != phase 15's")
+        phase("resume", "members and path == phase 15's, bit for bit")
+        ck.wait()
+        cfg = staged_config(base)
+        prob = D.build_union_problem(pg, cfg.backend, cfg.r_blk, "cuda")
+        _, _, last, state, extra = S.restore_staged(ck, pg, prob, cfg,
+                                                    device="cuda")
+        del prob
+        cell = extra["path"][-1]["cell"]
+        real = int((last.aux.gid[last.aux.row.long()] >= 0).sum())
+        phase("resume", f"last rung {cell}: V={last.V} real_edges={real}")
+        return fused_at(f"descent-kernel {cell}", last,
+                        fused_args(last, state, "edges-only"), reps)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def serve_chunk(svc, reqs, cell_name: str):
     """One cell's stacked chunk as the service stacks it: its first 64
     requests of the cell (its cached problems, its E_BLK high-water mark)
@@ -980,13 +1183,14 @@ def batched_kernel_at(svc, reqs, cell_name: str, reps: int) -> dict:
     return fused_at(label, prob, kw, reps)
 
 
-def serve_row(rec: dict) -> dict:
-    """The kernels line's row of the batched ``segment_fused`` (the same
-    source, its batch grid axis) at serve_m x 64."""
+def fused_row(name: str, rec: dict) -> dict:
+    """A kernels-line row of ``segment_fused`` at one more plan: the
+    batched form (its batch grid axis) at serve_m x 64, or the staged
+    solve's last rung."""
     from repro_torch.kernels.segment_coo import kernel as K
 
     return dict(
-        name="segment_fused_batched", route="cuda",
+        name=name, route="cuda",
         source=str(K.LIBS["segment_fused"][1][0].relative_to(ROOT)),
         replaces=REPLACES["segment_fused"],
         **{key: rec[key] for key in (
@@ -1023,6 +1227,7 @@ def serve_phase(opts) -> dict:
                    f"{sum(r.weight for r in gr['results'])})")
     rnp = serve_run(opts, "rnp cuda", True, algo="rnp", backend="cuda",
                     requests=48, verify="full")
+    dsc = serve_descent(opts, rg)
     # where a warm batch's time goes: the stream's first 64 requests (about
     # 21 of each cell, three chunks) once more on rg / cuda
     svc, first = rg["service"], rg["requests"][:64]
@@ -1032,7 +1237,8 @@ def serve_phase(opts) -> dict:
         batched_kernel_at(rg["service"], rg["requests"], name, opts.reps)
     kern = batched_kernel_at(rg["service"], rg["requests"], "serve_m",
                              opts.reps)
-    kern["launches"] = rg["launches"] + gr["launches"] + rnp["launches"]
+    kern["launches"] = (rg["launches"] + gr["launches"] + rnp["launches"]
+                        + dsc["launches"])
     phase("serve", f"phase seconds={time.time() - t0:.1f}")
     return kern
 
@@ -1113,6 +1319,7 @@ def main() -> None:
                   "and members identical")
     del ref
     rg = drive(base, g, pg, "full", True, algo="rg", schedule="edges-only")
+    rg_members, rg_seconds = rg["members"], rg["seconds"]
     kfull = kernel_at_full_size(red, opts.reps)
     wfull = wedge_at_full_size(red, opts.reps)
     replay_seconds(red, "reduce/cheap-fused")
@@ -1145,6 +1352,9 @@ def main() -> None:
     sfull = segment_sum_at_size(dev, opts.seed, opts.reps)
     efull = embedding_bag_at_size(dev, opts.seed, opts.reps)
     sk = serve_phase(opts)
+    staged = descent_phase(base, g, pg, rg_members, rg_seconds)
+    dk = resume_phase(base, g, pg, staged, opts.reps)
+    dk["launches"] = staged["launches"]
 
     kfull.update(launches=launches,
                  max_abs_err=max(err, kfull["max_abs_err"]))
@@ -1163,7 +1373,8 @@ def main() -> None:
             "bound_by", "library_ms",
             *(FUSED_EXTRA if name == "segment_fused" else ()))},
     ) for name, (_, sources) in libs.items()]
-    rows.append(serve_row(sk))
+    rows.append(fused_row("segment_fused_batched", sk))
+    rows.append(fused_row("segment_fused_last_rung", dk))
     phase("done", f"total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """mwis — the serving and descent shape cells of the paper's workload.
 
 A copy of the ``kind="serve"`` and ``kind="descent"`` rows of the
-reference's ``MWIS_SHAPES`` (``repro/configs/base.py``) and of its serving
-helpers (``repro/configs/mwis.py``); the reference module imports JAX, so
+reference's ``MWIS_SHAPES`` and its ``MWIS_DESCENT_LADDER``
+(``repro/configs/base.py``), and of its serving helpers
+(``repro/configs/mwis.py``); the reference module imports JAX, so
 the port keeps its own copy instead of importing it.
 
 Serving cells (MWIS-as-a-service) are the single-PE buckets the batched
@@ -14,9 +15,10 @@ cell (a batch shares one ``r_blk``) and ``e_blk`` floors the shared edge
 budget (the serving layer grows it as a high-water mark).
 The reference's multi-device knobs (``serve_devices``, ``pipeline`` and
 ``serve_knobs``) are left out: the port serves on one card, synchronously
-(ROADMAP Queue 1 item 10).
+(ROADMAP Queue 1 item 4).
 Descent cells are the rungs above ``serve_m`` that the staged solver
-re-packs onto (not ported yet).
+(:func:`repro_torch.core.solvers.solve_staged`) re-packs onto, and the
+entry shapes of instances too large for every serve cell.
 """
 
 from __future__ import annotations
@@ -40,6 +42,12 @@ MWIS_SHAPES: Dict[str, Dict[str, Any]] = {
                        S=128, D=8, Dc=4, schedule="cheap-fused",
                        seg_blk=dict(r_blk=32, e_blk=1024)),
 }
+
+#: Ladder order (ascending) used by solvers.solve_staged when no explicit
+#: ladder is given: serve cells first, then the descent extensions.
+MWIS_DESCENT_LADDER = (
+    "serve_xs", "serve_s", "serve_m", "descent_l", "descent_xl",
+)
 
 #: Static batch-size buckets of the serving layer: a request batch is
 #: padded up to the smallest admissible size.

@@ -43,6 +43,13 @@ class DisReduConfig:
     max_rounds: int = 10_000
     r_blk: Optional[int] = None   # blocked-ELL row-block height; None =
                                   # autotune at plan-build time (engine)
+    # --- shape-descent policy (solvers.solve_staged) ------------------- #
+    descent: bool = False         # re-pack the alive kernel onto smaller
+                                  # ladder cells at stage boundaries
+    descent_every: int = 2        # rounds (reduce/greedy) per stage between
+                                  # descent checks
+    descent_factor: int = 2       # hysteresis: only descend onto a cell
+                                  # with cell.L * factor <= current L
 
     @property
     def sweeps_per_round(self) -> int:
@@ -64,9 +71,16 @@ def build_union_problem(
     pg: PartitionedGraph, backend: str = "torch",
     r_blk: Optional[int] = None,
     device: torch.device | str | None = None,
+    plan_cache: Optional[E.PlanCache] = None,
+    plan_tag: Optional[str] = None,
 ) -> UnionProblem:
     """Stack all PEs into one block-diagonal graph with offset indices, on
-    ``device`` (default CUDA)."""
+    ``device`` (default CUDA).
+
+    ``plan_cache`` (an :class:`~repro_torch.core.engine.PlanCache`) reuses
+    the blocked-ELL SegPlan whenever the union topology repeats;
+    ``plan_tag="descent"`` counts the lookup in the cache's descent
+    counters (the staged solver's re-packs)."""
     dev = resolve_device(device)
     p, V = pg.p, pg.V
     off_v = (np.arange(p, dtype=np.int64) * V)[:, None]
@@ -95,9 +109,9 @@ def build_union_problem(
         win_adj_bits=t(win_adj_bits),
         edge_common=t(edge_common),
     )
-    plan = None if backend == "torch" else E.build_plan(
-        row, p * V, r_blk=r_blk, col=col, gid=gid, window=window,
-        win_adj_bits=win_adj_bits, device=dev,
+    plan = None if backend == "torch" else E.plan_for(
+        plan_cache, row, p * V, r_blk=r_blk, col=col, gid=gid,
+        window=window, win_adj_bits=win_adj_bits, tag=plan_tag, device=dev,
     )
     return UnionProblem(
         w0=t(pg.w0.reshape(-1)),
@@ -252,6 +266,65 @@ def kernel_stats(
     gids = np.asarray(pg.gid.reshape(-1))
     cnt = int((ea & is_local[ur] & (gids[ur] < gids[uc])).sum())
     return alive_v, cnt
+
+
+def kernel_shape(pg: PartitionedGraph, status: np.ndarray) -> dict:
+    """Exact per-PE padded-size requirements of the alive kernel.
+
+    Returns the smallest L/G/E/B/S a :func:`partition.compact_partition`
+    restriction of ``pg`` at this state needs (maxima over PEs, before any
+    ladder-cell flooring).  This is the stage-boundary measurement the
+    shape-descent policy compares against the static cell ladder.
+    """
+    p, V = pg.p, pg.V
+    status = np.asarray(status).reshape(p, V)
+    alive = status == UNDECIDED
+    keep_l = pg.is_local & alive
+    keep_g = pg.is_ghost & alive
+    keep = keep_l | keep_g
+    nl = ng = ne = nb = ns = 0
+    for i in range(p):
+        nl = max(nl, int(keep_l[i].sum()))
+        ng = max(ng, int(keep_g[i].sum()))
+        ne = max(ne, int((keep[i][pg.row[i]] & keep[i][pg.col[i]]).sum()))
+        nb = max(nb, int((keep_l[i] & pg.is_iface[i]).sum()))
+        gk = np.flatnonzero(keep_g[i])
+        if gk.size:
+            owners = pg.owner_pe[i, gk]
+            ns = max(ns, int(np.bincount(owners[owners >= 0]).max()))
+    return dict(L=nl, G=ng, E=ne, B=nb, S=ns)
+
+
+def ghosts_consistent(pg: PartitionedGraph, status: np.ndarray) -> bool:
+    """True iff every valid ghost slot is alive exactly when its owner's
+    local copy is alive — the exchange-consistency precondition of
+    :func:`partition.compact_partition`.  Holds at every post-exchange
+    round boundary; transiently false between a peel and the next
+    exchange (the staged solver never descends there)."""
+    p, V = pg.p, pg.V
+    status = np.asarray(status).reshape(p, V)
+    alive = status == UNDECIDED
+    owner_alive = np.zeros(pg.n_global, dtype=bool)
+    for i in range(p):
+        loc = pg.is_local[i]
+        owner_alive[pg.gid[i][loc]] = alive[i][loc]
+    for i in range(p):
+        gh = pg.is_ghost[i]
+        if (alive[i][gh] != owner_alive[pg.gid[i][gh]]).any():
+            return False
+    return True
+
+
+def state_template(union_v: int,
+                   device: torch.device | str = "cpu") -> R.RedState:
+    """A zero :class:`RedState` on ``device`` with the union-layout shapes
+    for ``p*V = union_v`` slots — the restore template for checkpointed
+    stage states (shape-descent checkpoints store one state per descent
+    level, each at its own ladder shape; the level's V is recorded in the
+    checkpoint manifest)."""
+    z = torch.zeros(union_v, dtype=torch.int32, device=device)
+    f = torch.zeros(union_v, dtype=torch.bool, device=device)
+    return R.init_state(z, f, f)
 
 
 def members_global(

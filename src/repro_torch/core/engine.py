@@ -268,8 +268,8 @@ class PlanCache:
     """Bounded LRU cache for topology-keyed artifacts (SegPlans, packed
     serve entries).  Host-side and not thread-safe — one cache per service
     or solver run.  ``max_entries`` bounds the resident entries; hits refresh
-    recency.  The ``tag="descent"`` counters are kept for the staged
-    solver (not ported yet)."""
+    recency.  The ``tag="descent"`` counters count the staged solver's
+    re-packs (:func:`repro_torch.core.solvers.solve_staged`)."""
 
     def __init__(self, max_entries: int = 256):
         if max_entries < 1:

@@ -32,6 +32,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from repro_torch.core import validate as VAL
 from repro_torch.core.graph import Graph
 
 # Status codes shared with the rules.
@@ -316,6 +317,166 @@ def partition_graph(
     return PartitionedGraph(
         p=p, n_global=n, L=L, G=Gm, E=Em, B=Bm, S=Sm, D=D,
         starts=starts, row=row, col=col, w0=w0, gid=gid,
+        is_local=is_local, is_ghost=is_ghost, is_iface=is_iface,
+        deg_local=deg_local, owner_pe=owner_pe, iface_slots=iface_slots,
+        ghost_owner_slot=ghost_owner_slot, window=window,
+        win_complete=win_complete, win_adj_bits=win_adj_bits,
+        edge_common=edge_common, Dc=Dc,
+        send_slot=send_slot, recv_ghost=recv_ghost,
+    )
+
+
+def compact_partition(
+    pg: PartitionedGraph,
+    status: np.ndarray,
+    w: np.ndarray,
+    *,
+    pad_to: Optional[Dict[str, int]] = None,
+    min_pad: int = 4,
+) -> PartitionedGraph:
+    """Exact shape-descent compaction: the *restriction* of ``pg`` to its
+    alive (UNDECIDED) kernel, with the current folded weights as ``w0``.
+
+    This is deliberately NOT a fresh :func:`partition_graph` of the
+    residual.  The staged solver's bit-identity guarantee rests on the
+    restricted instance making every rule test, greedy beat test, peel
+    argmax and exchange reconciliation compute exactly the values the
+    full-shape run would compute on its alive slots:
+
+      * per-PE ownership is preserved — every alive local/ghost stays on
+        its PE, so per-PE peel argmax sets and board routing are unchanged;
+      * slot maps are monotone (alive locals keep order, alive ghosts keep
+        order, locals stay below ghosts), so the lexsorted edge order — the
+        sorted-segment invariant of the aggregate engine — survives verbatim;
+      * windows keep their *positions*: dead entries become nil (inactive,
+        like any decided vertex) instead of being recomputed, so
+        ``win_adj_bits`` copies bit-for-bit and capped-rule activation
+        masks match the full-shape run; ``win_complete``/``is_iface`` are
+        copied, never recomputed (a fresh partition would fire MORE rules
+        than the full-shape run and break parity);
+      * global ids are copied (NOT relabelled): rules only compare gids and
+        test ``gid >= 0``, so non-contiguous gids are fine — and stitching
+        stays a direct lookup in the original id space.
+
+    ``status``/``w`` are the union-layout [p*V] (or [p, V]) arrays of the
+    current :class:`repro_torch.core.rules.RedState`.  Requires an
+    exchange-consistent state (ghost slot alive iff its owner's copy is
+    alive) — true at every post-exchange round boundary; raises
+    ``ValueError`` otherwise.  Weights go through
+    :func:`repro_torch.core.validate.residual_weights` (the
+    ``bad_weight`` gate for folded-weight overflow).  ``pad_to`` keys L/G/E/B/S floor the
+    padded sizes (ladder-cell bucketing); actual per-PE maxima win when
+    they exceed the floor.
+    """
+    p, V, L, G = pg.p, pg.V, pg.L, pg.G
+    status = np.asarray(status).reshape(p, V)
+    w = np.asarray(w).reshape(p, V)
+    alive = status == UNDECIDED
+    keep_l = pg.is_local & alive
+    keep_g = pg.is_ghost & alive
+    keep = keep_l | keep_g
+
+    per = []
+    for i in range(p):
+        kl = np.flatnonzero(keep_l[i])
+        kg = np.flatnonzero(keep_g[i])
+        ke = np.flatnonzero(keep[i][pg.row[i]] & keep[i][pg.col[i]])
+        per.append((kl, kg, ke))
+
+    pad = pad_to or {}
+    L2 = max(max(kl.size for kl, _, _ in per), 1, pad.get("L", 0))
+    G2 = max(max(kg.size for _, kg, _ in per), min_pad, pad.get("G", 0))
+    E2 = max(max(ke.size for _, _, ke in per), min_pad, pad.get("E", 0))
+    B2 = max(max(int((keep_l[i] & pg.is_iface[i]).sum()) for i in range(p)),
+             min_pad, pad.get("B", 0))
+    nil2 = L2 + G2
+    V2 = nil2 + 1
+    D, Dc = pg.D, pg.Dc
+
+    row = np.full((p, E2), nil2, dtype=np.int32)
+    col = np.full((p, E2), nil2, dtype=np.int32)
+    w0 = np.zeros((p, V2), dtype=np.int32)
+    gid = np.full((p, V2), -1, dtype=np.int32)
+    is_local = np.zeros((p, V2), dtype=bool)
+    is_ghost = np.zeros((p, V2), dtype=bool)
+    is_iface = np.zeros((p, V2), dtype=bool)
+    deg_local = np.zeros((p, V2), dtype=np.int32)
+    owner_pe = np.full((p, V2), -1, dtype=np.int32)
+    iface_slots = np.full((p, B2), nil2, dtype=np.int32)
+    window = np.full((p, V2, D), nil2, dtype=np.int32)
+    win_complete = np.zeros((p, V2), dtype=bool)
+    win_adj_bits = np.zeros((p, V2, D), dtype=np.int32)
+    edge_common = np.full((p, E2, Dc), nil2, dtype=np.int32)
+
+    board_slot_of = []  # per PE: {global_id -> new board slot}
+    slot_maps = []
+    for i, (kl, kg, ke) in enumerate(per):
+        smap = np.full(V, nil2, dtype=np.int32)
+        smap[kl] = np.arange(kl.size, dtype=np.int32)
+        smap[kg] = L2 + np.arange(kg.size, dtype=np.int32)
+        slot_maps.append(smap)
+        old = np.concatenate([kl, kg])
+        new = smap[old]
+        # monotone map ⇒ the kept subsequence of the lexsorted edge list
+        # stays lexsorted after remapping
+        ne = ke.size
+        row[i, :ne] = smap[pg.row[i, ke]]
+        col[i, :ne] = smap[pg.col[i, ke]]
+        w0[i, new] = VAL.residual_weights(
+            w[i, old], where=f"compact pe{i}")
+        gid[i, new] = pg.gid[i, old]
+        is_local[i, smap[kl]] = True
+        is_ghost[i, smap[kg]] = True
+        is_iface[i, new] = pg.is_iface[i, old]
+        owner_pe[i, new] = pg.owner_pe[i, old]
+        deg_local[i] = np.bincount(
+            row[i, :ne], minlength=V2).astype(np.int32)
+        window[i, new] = smap[pg.window[i, old]]
+        win_complete[i, new] = pg.win_complete[i, old]
+        win_adj_bits[i, new] = pg.win_adj_bits[i, old]
+        if ne:
+            edge_common[i, :ne] = smap[pg.edge_common[i, ke]]
+        slots = smap[np.flatnonzero(keep_l[i] & pg.is_iface[i])]
+        iface_slots[i, : slots.size] = slots
+        board_slot_of.append(
+            {int(gid[i, s]): k for k, s in enumerate(slots)}
+        )
+
+    # ghost -> owner board routing (old ghost order = sorted by gid).
+    ghost_owner_slot = np.zeros((p, G2), dtype=np.int32)
+    send_lists = [[[] for _ in range(p)] for _ in range(p)]
+    recv_lists = [[[] for _ in range(p)] for _ in range(p)]
+    for j, (_, kg, _) in enumerate(per):
+        for k2, s in enumerate(kg.tolist()):
+            gg = int(pg.gid[j, s])
+            o = int(pg.owner_pe[j, s])
+            slot = board_slot_of[o].get(gg)
+            if slot is None:
+                raise ValueError(
+                    "compact_partition needs an exchange-consistent state: "
+                    f"ghost gid {gg} is alive on pe{j} but its owner copy "
+                    f"on pe{o} is not (descend only at post-exchange round "
+                    "boundaries)")
+            ghost_owner_slot[j, k2] = slot
+            send_lists[o][j].append(slot)
+            recv_lists[j][o].append(k2)
+    S2 = max(
+        max((len(send_lists[i][j]) for i in range(p) for j in range(p)),
+            default=0),
+        1, pad.get("S", 0),
+    )
+    send_slot = np.full((p, p, S2), B2, dtype=np.int32)
+    recv_ghost = np.full((p, p, S2), G2, dtype=np.int32)
+    for i in range(p):
+        for j in range(p):
+            s = send_lists[i][j]
+            send_slot[i, j, : len(s)] = s
+            r = recv_lists[i][j]
+            recv_ghost[i, j, : len(r)] = r
+
+    return PartitionedGraph(
+        p=p, n_global=pg.n_global, L=L2, G=G2, E=E2, B=B2, S=S2, D=D,
+        starts=pg.starts, row=row, col=col, w0=w0, gid=gid,
         is_local=is_local, is_ghost=is_ghost, is_iface=is_iface,
         deg_local=deg_local, owner_pe=owner_pe, iface_slots=iface_slots,
         ghost_owner_slot=ghost_owner_slot, window=window,

@@ -24,11 +24,17 @@ What differs from the reference:
     result bit for bit.  On the ``cuda`` backend every aggregate of the
     chunk is one launch of the ``segment_fused`` kernel over the stacked
     plan (one grid row per instance).
-  * **one card, no pipeline** — ``devices > 1`` (the serve mesh),
+  * **one card, no pipeline** — ``devices > 1`` (the serve mesh) and
     ``pipeline=True`` (the double-buffered chunk pipeline; both ROADMAP
-    Queue 1 item 10) and ``descent="auto"`` (the staged solver, item 6)
-    raise :class:`NotImplementedError`.  ``ServeConfig.pipeline`` therefore
-    defaults to False here: chunks run one after another.
+    Queue 1 item 4) raise :class:`NotImplementedError`.
+    ``ServeConfig.pipeline`` therefore defaults to False here: chunks run
+    one after another.
+  * **shape descent** — ``descent="auto"`` is the reference's: requests
+    whose cell has ``L >= descent_min_L`` are solved one at a time by the
+    staged solver (:func:`repro_torch.core.solvers.solve_staged`), and
+    instances too large for every serve cell enter through the
+    ``kind="descent"`` cells.  Their descent plans share the topology
+    cache (``cache_descent_*``).
   * **no fallback from the kernel** — the reference demotes ``pallas``
     to ``blocked``; here ``cuda`` has no fallback, so a ``segment_fused``
     kernel that fails to build or launch turns the chunk's requests into
@@ -70,7 +76,7 @@ FALLBACK_CHAIN = {
 class ServeCell(NamedTuple):
     """One resolved serving bucket (a kind="serve" MWIS_SHAPES row): the
     reference's fields without its multi-device knobs (``serve_devices``,
-    ``pipeline``; ROADMAP Queue 1 item 10)."""
+    ``pipeline``; ROADMAP Queue 1 item 4)."""
 
     name: str
     L: int      # max vertices
@@ -108,8 +114,9 @@ def serve_cells() -> Tuple[ServeCell, ...]:
 
 
 def descent_entry_cells() -> Tuple[ServeCell, ...]:
-    """kind="descent" MWIS_SHAPES rows — oversize entry shapes of the
-    staged path (not ported yet: ``descent="auto"`` raises)."""
+    """kind="descent" MWIS_SHAPES rows — oversize *entry* shapes for the
+    staged path (never batched; a solve entering here descends into the
+    serve cells as the kernel shrinks)."""
     return _cells_of_kind("descent")
 
 
@@ -173,9 +180,9 @@ class ServeResult(NamedTuple):
     """One request's outcome.  ``ok=False`` results carry a stable
     ``reason`` code (:mod:`repro_torch.core.validate` REASON_*) and a
     human-readable ``error``; their mask is all-False and weight 0.
-    ``reason="oversize"`` means the instance exceeds every serve cell —
-    route it through the distributed path, ``repro_torch.core.solvers.
-    solve``."""
+    ``reason="oversize"`` means the instance exceeds every serve cell (and,
+    with ``descent="auto"``, every descent entry cell) — route it through
+    the distributed path, ``repro_torch.core.solvers.solve``."""
 
     members: np.ndarray   # [n] bool — the independent set
     weight: int           # its weight under the request's weight vector
@@ -189,6 +196,12 @@ def _error_result(n: int, reason: str, detail: str) -> ServeResult:
         members=np.zeros(max(n, 0), dtype=bool), weight=0,
         ok=False, reason=reason, error=f"{reason}: {detail}",
     )
+
+
+def _backend_failed(n: int, backend: str, err: Exception) -> ServeResult:
+    return _error_result(
+        n, V.REASON_BACKEND_FAILED,
+        f"backend {backend!r} failed with no fallback left: {err}")
 
 
 class _Staged(NamedTuple):
@@ -215,10 +228,10 @@ class _Inflight(NamedTuple):
 class ServeConfig:
     """Serving knobs (algo/backend/schedule as in DisReduConfig).
 
-    ``devices`` (a serve mesh), ``pipeline`` (the overlapped chunk
-    pipeline) and ``descent="auto"`` are the reference's knobs for work
-    not ported yet: any value but the one-card, synchronous, fixed-shape
-    setting raises at construction of the service."""
+    ``devices`` (a serve mesh) and ``pipeline`` (the overlapped chunk
+    pipeline) are the reference's knobs for work not ported yet (ROADMAP
+    Queue 1 item 4): any value but the one-card, synchronous setting
+    raises at construction of the service."""
 
     algo: str = "rg"              # greedy | rg | rnp
     backend: str = "torch"        # torch | blocked | cuda
@@ -232,7 +245,12 @@ class ServeConfig:
     verify: str = "off"           # post-solve audit: off | sample | full
     devices: Optional[int] = None  # serve-mesh size: None or 1 (one card)
     pipeline: bool = False        # overlapped chunk pipeline: not ported
-    descent: str = "off"          # off | auto (auto: not ported)
+    # --- shape descent (solvers.solve_staged) ------------------------- #
+    descent: str = "off"          # off | auto — big cells take the staged
+                                  # path and shrink mid-solve
+    descent_min_L: int = 1024     # smallest cell L routed through descent
+                                  # (default: serve_m and up)
+    descent_every: int = 2        # stage length between descent checks
     device: str = "cuda"          # torch device the service solves on
 
 
@@ -264,23 +282,21 @@ class MWISService:
                 f"unknown descent mode {cfg.descent!r}; "
                 "available: ('off', 'auto')"
             )
-        if cfg.descent == "auto":
-            raise NotImplementedError(
-                "descent='auto' needs the staged solver "
-                "(solvers.solve_staged), ROADMAP Queue 1 item 6")
         if cfg.devices is not None and cfg.devices < 1:
             raise ValueError(f"serve devices={cfg.devices} must be >= 1")
         if cfg.devices is not None and cfg.devices > 1:
             raise NotImplementedError(
                 f"devices={cfg.devices}: the multi-GPU serve mesh is "
-                "ROADMAP Queue 1 item 10; the port serves on one card")
+                "ROADMAP Queue 1 item 4; the port serves on one card")
         if cfg.pipeline:
             raise NotImplementedError(
                 "pipeline=True: the overlapped chunk pipeline is ROADMAP "
-                "Queue 1 item 10; chunks run synchronously")
+                "Queue 1 item 4; chunks run synchronously")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.cells = tuple(cells) if cells is not None else serve_cells()
+        self.descent_cells = descent_entry_cells() \
+            if cfg.descent == "auto" else ()
         if not self.cells:
             raise ValueError("no serve cells configured (MWIS_SHAPES has "
                              "no kind='serve' rows)")
@@ -440,6 +456,23 @@ class MWISService:
         staged = self._stage_chunk(cell, topos, backend, rec)
         return self._fetch_chunk(self._launch_chunk(staged))
 
+    def _demote(self, backend: str, cell: ServeCell, err: Exception) -> bool:
+        """After ``backend`` failed on ``cell``: demote the service to the
+        next backend of its FALLBACK_CHAIN (True: retry there), or, with
+        none left, count the failure (False).  A demotion sticks for the
+        rest of the service's life."""
+        chain = FALLBACK_CHAIN[self.cfg.backend]
+        pos = chain.index(backend) if backend in chain else len(chain)
+        if pos + 1 >= len(chain):
+            self.counters["solve_errors"] += 1
+            self.events.append(("backend_failed", cell.name, backend,
+                                str(err)))
+            return False
+        self.counters["fallbacks"] += 1
+        self.events.append(("fallback", backend, chain[pos + 1], str(err)))
+        self._backend = chain[pos + 1]
+        return True
+
     def _solve_chunk(
         self,
         cell: ServeCell,
@@ -448,8 +481,7 @@ class MWISService:
         out: List[Optional[ServeResult]],
     ) -> None:
         """Pack + solve one (cell, ≤max_batch) chunk with per-request
-        isolation and the backend fallback chain; fills ``out``.  A
-        demotion sticks for the rest of the service's life."""
+        isolation and the backend fallback chain; fills ``out``."""
         while True:
             backend = self._backend
             topos, good = self._pack_requests(cell, idxs, graphs, out,
@@ -459,23 +491,11 @@ class MWISService:
             try:
                 masks = self._execute_chunk(cell, topos, backend)
             except Exception as e:  # noqa: BLE001 — degrade, don't abort
-                chain = FALLBACK_CHAIN[self.cfg.backend]
-                pos = chain.index(backend) if backend in chain else len(chain)
-                nxt = chain[pos + 1] if pos + 1 < len(chain) else None
-                if nxt is None:
-                    self.counters["solve_errors"] += 1
-                    self.events.append(
-                        ("backend_failed", cell.name, backend, str(e)))
-                    for i in good:
-                        out[i] = _error_result(
-                            graphs[i].n, V.REASON_BACKEND_FAILED,
-                            f"backend {backend!r} failed with no fallback "
-                            f"left: {e}")
-                    return
-                self.counters["fallbacks"] += 1
-                self.events.append(("fallback", backend, nxt, str(e)))
-                self._backend = nxt
-                continue        # retry the chunk on the demoted backend
+                if self._demote(backend, cell, e):
+                    continue    # retry the chunk on the demoted backend
+                for i in good:
+                    out[i] = _backend_failed(graphs[i].n, backend, e)
+                return
             for k, i in enumerate(good):
                 out[i] = self._finish_result(
                     graphs[i], masks[k], check=(self.cfg.verify == "full")
@@ -493,6 +513,41 @@ class MWISService:
         for cell, idxs in chunks:
             self._solve_chunk(cell, idxs, graphs, out)
         self._wall_s += time.perf_counter() - t_wall
+
+    def _solve_staged_one(self, g: Graph, cell: ServeCell) -> ServeResult:
+        """One instance through the shape-descent path
+        (:func:`repro_torch.core.solvers.solve_staged`): enter at
+        ``cell``'s shape, shrink onto smaller cells as reduction collapses
+        the kernel.  Descent plans go through the shared
+        :class:`PlanCache` (counted in ``cache_descent_*``).  Same
+        isolation contract as the batched path: never raises, walks the
+        backend fallback chain (``cuda`` has none)."""
+        cfg = self.cfg
+        sched = cfg.schedule or cell.schedule
+        while True:
+            backend = self._backend
+            dcfg = D.DisReduConfig(
+                heavy_k=cfg.heavy_k, use_heavy=cfg.use_heavy, mode="sync",
+                max_rounds=cfg.max_rounds, schedule=sched, backend=backend,
+                r_blk=None if backend == "torch" else cell.r_blk,
+                descent=True, descent_every=cfg.descent_every,
+            )
+            try:
+                members, st = SOL.solve_staged(
+                    g, 1, cfg.algo, dcfg, plan_cache=self.cache,
+                    pad_to=dict(L=cell.L, G=cell.G, E=cell.E, B=cell.B,
+                                S=cell.S),
+                    window_cap=cell.D, common_cap=cell.Dc,
+                    device=self.device,
+                )
+            except Exception as e:  # noqa: BLE001 — degrade, don't abort
+                if self._demote(backend, cell, e):
+                    continue
+                return _backend_failed(g.n, backend, e)
+            self.counters["descent_solves"] += 1
+            self.counters["descents"] += int(st["descents"])
+            return self._finish_result(
+                g, members, check=self.cfg.verify in ("sample", "full"))
 
     def _finish_result(
         self, g: Graph, mask: np.ndarray, check: bool
@@ -518,6 +573,7 @@ class MWISService:
         codes while the rest of the batch solves normally.
         """
         order: Dict[str, List[int]] = {}
+        staged: List[Tuple[int, ServeCell]] = []
         cells_by_name = {c.name: c for c in self.cells}
         admitted: List[Graph] = list(graphs)
         out: List[Optional[ServeResult]] = [None] * len(graphs)
@@ -544,11 +600,29 @@ class MWISService:
             try:
                 cell = bucket_for(g.n, g.num_directed_edges, self.cells)
             except ValueError as e:
-                self.counters["rejected"] += 1
-                self.events.append(("rejected", V.REASON_OVERSIZE, str(e)))
-                out[i] = _error_result(g.n, V.REASON_OVERSIZE, str(e))
+                # oversize for every serve cell — with descent on, admit
+                # through a kind="descent" entry shape (staged path only)
+                dcell = None
+                if self.descent_cells:
+                    try:
+                        dcell = bucket_for(g.n, g.num_directed_edges,
+                                           self.descent_cells)
+                    except ValueError:
+                        dcell = None
+                if dcell is None:
+                    self.counters["rejected"] += 1
+                    self.events.append(
+                        ("rejected", V.REASON_OVERSIZE, str(e)))
+                    out[i] = _error_result(g.n, V.REASON_OVERSIZE, str(e))
+                    continue
+                self.counters["oversize_admitted"] += 1
+                staged.append((i, dcell))
                 continue
-            order.setdefault(cell.name, []).append(i)
+            if (self.cfg.descent == "auto"
+                    and cell.L >= self.cfg.descent_min_L):
+                staged.append((i, cell))
+            else:
+                order.setdefault(cell.name, []).append(i)
 
         chunks: List[Tuple[ServeCell, List[int]]] = []
         for cell_name, idxs in order.items():
@@ -556,6 +630,8 @@ class MWISService:
             for c0 in range(0, len(idxs), self.cfg.max_batch):
                 chunks.append((cell, idxs[c0 : c0 + self.cfg.max_batch]))
         self._run_chunks(chunks, admitted, out)
+        for i, cell in staged:
+            out[i] = self._solve_staged_one(admitted[i], cell)
         return out  # type: ignore[return-value]
 
     def solve_one(self, g: Graph) -> ServeResult:

@@ -9,9 +9,12 @@ topology-cached and solved as stacked batches
 (:mod:`repro_torch.core.serve`); it reports sustained
 instances/sec, p50/p99 batch latency and plan-cache statistics.  Same
 flags and printed lines as ``repro.launch.serve --arch mwis``, without
-``--descent`` / ``--devices`` / ``--no-pipeline`` (the port serves on one
-card, synchronously), plus ``--device`` (default cuda; without a visible
-GPU it exits unless ``--device cpu`` is given).  The other archs of the
+``--devices`` / ``--no-pipeline`` (the port serves on one card,
+synchronously; ROADMAP Queue 1 item 4), plus ``--device`` (default cuda;
+without a visible GPU it exits unless ``--device cpu`` is given).
+``--descent auto`` sends serve_m requests through the staged solver and
+admits instances too large for every serve cell through the descent
+cells.  The other archs of the
 reference (dlrm-mlperf, the LMs) wait for their models' port.
 """
 
@@ -43,6 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--verify", default="off",
                     choices=("off", "sample", "full"),
                     help="post-solve output audit (independence + weight)")
+    ap.add_argument("--descent", default="off", choices=("off", "auto"),
+                    help="shape descent: big cells shrink mid-solve and "
+                         "oversize instances enter via descent cells")
     ap.add_argument("--device", default="cuda",
                     help="torch device the service solves on (cuda | cpu)")
     ap.add_argument("--seed", type=int, default=0)
@@ -78,7 +84,7 @@ def serve_mwis(args: argparse.Namespace) -> dict:
     results."""
     cfg = SV.ServeConfig(algo=args.algo, backend=args.backend,
                          max_batch=args.batch, verify=args.verify,
-                         device=args.device)
+                         descent=args.descent, device=args.device)
     try:
         svc = SV.MWISService(cfg)
     except ValueError as e:

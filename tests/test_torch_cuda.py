@@ -6,6 +6,8 @@ Needs a CUDA card (marker ``gpu``); skips on a CPU-only machine.  On the
 card: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -319,6 +321,101 @@ def test_cuda_solve_matches_cpu(cuda, algo, mode):
     for f in ("w", "status", "log_kind", "log_v", "log_u", "log_n",
               "offset"):
         assert torch.equal(getattr(gs, f).cpu(), getattr(cs, f)), f
+
+
+#: A two-rung ladder an RGG of 2,000 vertices on 2 PEs (L 1,005, E 7,936
+#: a PE) descends through: rnp takes both rungs, rg the lower one.
+TWO_RUNGS = (S.LadderCell("rung_s", 64, 1024, 32, 16, 16, r_blk=8),
+             S.LadderCell("rung_m", 256, 4096, 64, 32, 32, r_blk=16))
+
+
+def _staged_case():
+    g = gen.rgg2d(2000, avg_deg=8, seed=0)
+    pg = part.partition_graph(g, 2, window_cap=16)
+    cfg = D.DisReduConfig(mode="async", schedule="edges-only",
+                          backend="cuda", descent=True)
+    return g, pg, cfg
+
+
+@pytest.mark.parametrize("algo", ["rg", "rnp"])
+def test_staged_solve_on_cuda_matches_cpu(cuda, algo):
+    """The staged solve on the card (kernel backend, each rung's plan) ==
+    the staged solve of the ``torch`` backend on the CPU == the port's
+    monolithic solve on the card: members, descents and path."""
+    g, pg, cfg = _staged_case()
+    before = kernels.launch_count("segment_fused")
+    gm, gst = S.solve_staged(g, 2, algo, cfg, ladder=TWO_RUNGS, pg=pg,
+                             device=cuda)
+    assert kernels.launch_count("segment_fused") > before
+    cm, cst = S.solve_staged(g, 2, algo, dataclasses.replace(
+        cfg, backend="torch"), ladder=TWO_RUNGS, pg=pg, device="cpu")
+    np.testing.assert_array_equal(gm, cm)
+    assert gst["path"] == cst["path"]
+    assert gst["descents"] == (2 if algo == "rnp" else 1)
+    mono, _ = S.solve(pg, algo, dataclasses.replace(cfg, descent=False),
+                      device=cuda)
+    np.testing.assert_array_equal(gm, mono)
+    assert g.is_independent_set(gm)
+
+
+def test_kernel_on_each_rung_plan(cuda, tmp_path):
+    """``segment_fused`` == its plain version on every rung's plan of a
+    staged rnp solve on the card (restored from its checkpoints), with
+    the first sweep's payload columns at that rung."""
+    from repro_torch.distributed.checkpoint import CheckpointManager
+
+    g, pg, cfg = _staged_case()
+    ck = CheckpointManager(str(tmp_path), keep=10, async_write=False)
+    _, st = S.solve_staged(g, 2, "rnp", cfg, ladder=TWO_RUNGS, pg=pg,
+                           ckpt=ck, device=cuda)
+    assert ck.list_steps() == [1, 2]
+    prob = D.build_union_problem(pg, "cuda", device=cuda)
+    req = E.schedule_requires(E.SCHEDULES["edges-only"])
+    for step in ck.list_steps():
+        _, _, lp, state, _ = S.restore_staged(ck, pg, prob, cfg,
+                                              ladder=TWO_RUNGS, step=step,
+                                              device=cuda)
+        assert lp.plan.r_blk == {1: 16, 2: 8}[step]
+        _, _, dsum, dmax, dor = E.ctx_payloads(
+            state, lp.aux, req, window_bits=True, plan=lp.plan)
+        n_rows = lp.aux.gid.shape[0]
+        kw = dict(r_blk=lp.plan.r_blk, data_sum=dsum, data_max=dmax,
+                  data_or=dor, or_nbits=lp.aux.window.shape[1])
+        before = kernels.launch_count("segment_fused")
+        got = K.segment_fused(lp.plan.edge_perm, lp.plan.lrow, n_rows,
+                              extent=lp.plan.extent, **kw)
+        torch.cuda.synchronize()
+        assert kernels.launch_count("segment_fused") == before + 1
+        want = segment_fused_plain(lp.plan.edge_perm, lp.plan.lrow, n_rows,
+                                   **kw)
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a, b), step
+
+
+def test_checkpoint_restored_on_cuda_resumes(cuda, tmp_path):
+    """Kill a staged rnp solve on the card after its first descent, restore
+    the checkpoint onto the card and finish: bit-identical to the
+    uninterrupted run."""
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.fault import InjectedFault
+
+    g, pg, cfg = _staged_case()
+    want, st = S.solve_staged(g, 2, "rnp", cfg, ladder=TWO_RUNGS, pg=pg,
+                              device=cuda)
+    ck = CheckpointManager(str(tmp_path), async_write=True)
+
+    def kill(descents, cell):
+        raise InjectedFault(cell)
+
+    with pytest.raises(InjectedFault):
+        S.solve_staged(g, 2, "rnp", cfg, ladder=TWO_RUNGS, pg=pg, ckpt=ck,
+                       on_descent=kill, device=cuda)
+    got, rst = S.solve_staged(g, 2, "rnp", cfg, ladder=TWO_RUNGS, pg=pg,
+                              ckpt=ck, resume=True, device=cuda)
+    np.testing.assert_array_equal(got, want)
+    assert rst["path"] == st["path"]
 
 
 def _sampled_rows(seeds, fanouts):

@@ -1,5 +1,6 @@
-"""The port stands alone: importing and running it — the solver, the
-serving layer and both CLIs — loads neither JAX nor the reference package,
+"""The port stands alone: importing and running it — the solver, the staged
+solver with its checkpoint and fault harness, the serving layer (with
+descent on) and both CLIs — loads neither JAX nor the reference package,
 an entry point without ``device=`` refuses to run when no GPU is visible,
 and CPU tensors never count as kernel launches — neither on the solver's
 or the service's path nor through the three kernel ops off it."""
@@ -14,6 +15,7 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 
 SCRIPT = textwrap.dedent("""
     import sys
+    import tempfile
 
     import numpy as np
     import torch
@@ -23,6 +25,10 @@ SCRIPT = textwrap.dedent("""
     from repro_torch.core import partition as part
     from repro_torch.core import serve as SV
     from repro_torch.core import solvers as S
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.fault import (
+        FaultPlan, InjectedFault, remesh_plan, run_union_reduction,
+    )
     from repro_torch.graphs import generators as gen
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.segment_coo.ops import pack_blocks, segment_sum_coo
@@ -38,6 +44,29 @@ SCRIPT = textwrap.dedent("""
     members, _ = S.solve(pg, "rnp", cfg, device="cpu")
     assert g.is_independent_set(members)
     assert kernels.launch_count("segment_fused") == 0
+
+    ladder = (S.LadderCell("a", 16, 256, 8, 4, 4),
+              S.LadderCell("b", 48, 768, 16, 8, 8))
+    dcfg = D.DisReduConfig(mode="async", schedule="cheap-fused",
+                           backend="cuda", descent=True)
+    ck = CheckpointManager(tempfile.mkdtemp(), async_write=True)
+
+    def kill(descents, cell):
+        raise InjectedFault(cell)
+
+    try:
+        S.solve_staged(g, 2, "rnp", dcfg, ladder=ladder, pg=pg, ckpt=ck,
+                       on_descent=kill, device="cpu")
+    except InjectedFault:
+        pass
+    staged, st = S.solve_staged(g, 2, "rnp", dcfg, ladder=ladder, pg=pg,
+                                ckpt=ck, resume=True, device="cpu")
+    assert st["descents"] >= 1 and np.array_equal(staged, members)
+    prob = D.build_union_problem(pg, "cuda", device="cpu")
+    _, _, rep = run_union_reduction(prob, cfg, faults=FaultPlan(
+        delay_pe=1, delay_rounds=2))
+    assert rep["fixpoint"] and not rep["violations"]
+    assert len(remesh_plan(200, 2, 3)["copies"]) == 3
 
     prob = D.build_union_problem(pg, "torch", device="cpu")
     c, k = common_neighbor_stats(prob.aux.window, prob.w0,
@@ -56,10 +85,13 @@ SCRIPT = textwrap.dedent("""
                         torch.ones((2, 3)))
     assert out.tolist() == [[3.0] * 4] * 2
     svc = SV.MWISService(SV.ServeConfig(backend="cuda", device="cpu",
-                                        verify="full"))
-    res = svc.solve_batch([gen.gnm(40, 80, seed=s) for s in range(3)])
+                                        verify="full", descent="auto",
+                                        descent_min_L=256))
+    res = svc.solve_batch([gen.gnm(n, 2 * n, seed=s)
+                           for s, n in enumerate((40, 40, 200))])
     assert all(r.ok for r in res), res
     assert svc.stats["backend_active"] == "cuda"
+    assert svc.stats["descent_solves"] == 1
     serve_cli.main(["--device", "cpu", "--requests", "2", "--batch", "2",
                     "--repeat-topologies", "2", "--algo", "greedy"])
     counts = tuple(kernels.launch_count(k) for k in (
@@ -67,6 +99,7 @@ SCRIPT = textwrap.dedent("""
     assert counts == (0, 0, 0, 0), counts
 
     for call in (lambda: S.solve(pg, "rnp", cfg),
+                 lambda: S.solve_staged(g, 2, "rnp", dcfg, pg=pg),
                  lambda: D.disredu(pg, cfg),
                  lambda: mwis_run.main(["--n", "50", "--p", "2"]),
                  lambda: SV.MWISService(),

@@ -519,8 +519,7 @@ def test_kernel_failure_is_not_hidden(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(descent="auto"), "item 6"), (dict(devices=2), "item 10"),
-    (dict(pipeline=True), "item 10"),
+    (dict(devices=2), "item 4"), (dict(pipeline=True), "item 4"),
 ])
 def test_unported_knobs_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
