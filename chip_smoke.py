@@ -78,7 +78,29 @@ continues):
                from the checkpoint: members equal to phase 15's; then the
                kernel on the last rung's plan (restored from the resumed
                run's last checkpoint, the payload columns of the rung's
-               first sweep) against its plain version, timed as in phase 6.
+               first sweep) against its plain version, timed as in phase 6;
+ 17. dist    — the per-PE path (``launch.mesh.run_shard_map``: one spawned
+               rank of a ``torch.distributed`` group a PE): four gloo
+               ranks, all on the one card (NCCL refuses two ranks on one
+               device), spawned once, run reduce/cheap-fused with the a2a
+               and the allgather exchange and rg/edges-only on phase 5's
+               partition, rnp/edges-only at ``--dist-rnp-n``, and reduce
+               and rg at ``DIST_LOCAL_N``.  The per-PE sweeps are
+               rank-local, as the reference's shard_map's are, so rounds
+               and even the reduced graph may differ from the union
+               path's (the CPU tests hold the per-PE path to the
+               reference's shard_map bit for bit): each run prints the
+               union run's rounds, offset, statuses and members beside
+               its own; the two exchanges agree in every output at full
+               size; the smaller runs equal the same four ranks on the
+               CPU in every output, rounds included; members are
+               independent; every rank ran one round count.  Then one
+               NCCL rank (p = 1, rg) equal to the union run; every rank
+               launched ``segment_fused`` and no other kernel; then the
+               kernel on rank 0's plan (its row of ``shard_map_arrays``)
+               with the first sweep's columns, timed as in phase 6.  Four
+               processes share one card and the host, so its seconds are
+               no multi-GPU time.
 
 Phases 4, 7, 12 and 13 reset each op's launch count just before its calls
 and read it just after (it must be > 0), then time the kernel, its plain
@@ -119,6 +141,13 @@ SEGMENT_SUM_SIZE = dict(seeds=1024, fanouts=(15, 10), n_rows=169_984,
                         n_edges=168_960, widths=(602, 128), r_blk=8)
 #: dlrm-mlperf's largest table (src/repro/models/dlrm.py) at ``serve_bulk``.
 EMBEDDING_BAG_SIZE = dict(V=39_979_771, D=128, B=262_144, bags=(1, 4))
+
+#: RGG vertices of phase 17's NCCL run (world 1, p = 1).
+DIST_NCCL_N = 1 << 14
+#: RGG vertices of phase 17's reduce and rg runs held against the same
+#: ranks on the CPU: at this size the per-PE rounds (rank-local sweeps)
+#: differ from the union's.
+DIST_LOCAL_N = 1 << 16
 
 #: The TPU kernel each CUDA kernel replaces (the sources are the kernel
 #: modules' ``LIBS``).
@@ -1153,6 +1182,192 @@ def resume_phase(base, g, pg, staged: dict, reps: int) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def union_snapshot(res: dict, p: int) -> dict:
+    """A union run's result in the per-PE layout (numpy): status and w
+    [p, V], the offset, rounds, members and weight."""
+    st = res["state"]
+    return dict(status=st.status.cpu().numpy().reshape(p, -1),
+                w=st.w.cpu().numpy().reshape(p, -1), offset=int(st.offset),
+                rounds=res["rounds"], members=res["members"],
+                weight=res.get("weight"))
+
+
+#: Outputs of a dist run that are measurements, not results.
+DIST_TIMES = ("seconds", "load_seconds", "launches")
+
+
+def same_outputs(label: str, got: dict, want: dict, what: str) -> None:
+    """Two dist runs of one instance agree rank for rank in every output
+    (rounds and fold log included), bit for bit."""
+    import numpy as np
+
+    bad = [k for k in want if k not in DIST_TIMES
+           and not np.array_equal(got[k], want[k])]
+    if bad:
+        fail(f"dist {label}: {bad} differ from {what}")
+
+
+def against_union(g, out: dict, snap: dict) -> str:
+    """How a per-PE run compares with the union run of its instance.  The
+    per-PE sweeps are rank-local, as the reference's shard_map's are, so
+    its rounds and, where a PE's heavy vertex sweeps run before the union's
+    global flag lets them, its reduced graph may differ from the union's
+    (the CPU tests hold the per-PE path to the reference's shard_map).
+    ``out["members"]``, where the run has them, is the global mask."""
+    import numpy as np
+
+    offset = int(np.int32(out["offset"].astype(np.int64).sum()))
+    line = (f"rounds {int(out['rounds'][0])} (union {snap['rounds']}), "
+            f"offset {offset} (union {snap['offset']}), statuses differing "
+            f"{int((out['status'] != snap['status']).sum())} of "
+            f"{out['status'].size}")
+    if "members" in out:
+        same = np.array_equal(out["members"], snap["members"])
+        line += (f", weight {g.set_weight(out['members'])} (union "
+                 f"{snap['weight']}), members {'==' if same else '!='} the "
+                 f"union's")
+    return line
+
+
+def dist_launches(label: str, out: dict) -> int:
+    """Each rank's kernel launches in one dist run: segment_fused > 0, the
+    three off-path kernels 0; returns segment_fused's sum over ranks."""
+    counts = {k: [int(x) for x in v] for k, v in out["launches"].items()}
+    fused = counts.pop("segment_fused")
+    if min(fused) <= 0:
+        fail(f"dist {label}: a rank never launched segment_fused: {fused}")
+    if any(any(v) for v in counts.values()):
+        fail(f"dist {label}: a kernel off the MWIS path launched: {counts}")
+    return sum(fused)
+
+
+def dist_phase(base, g, pg, red_snap: dict, rg_snap: dict, opts) -> dict:
+    """Phase 17: the per-PE path (one spawned rank a PE) on the card; see
+    the module docstring.  Returns the kernel's record on rank 0's plan."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import rules as R
+    from repro_torch.launch import mesh, mwis_run
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    p = pg.p
+
+    def cfg(**over):
+        return mwis_run.config(argparse.Namespace(**{**vars(base), **over}))
+
+    def at(n, label, **over):
+        args = argparse.Namespace(**{**vars(base), "n": n})
+        g_n, pg_n = mwis_run.prepare(args)
+        return g_n, pg_n, union_snapshot(drive(args, g_n, pg_n, label, True,
+                                               **over), p)
+
+    g4, pg4, rnp_snap = at(opts.dist_rnp_n, "dist-rnp-union", algo="rnp",
+                           schedule="edges-only")
+    g5, pg5, loc_snap = at(DIST_LOCAL_N, "dist-local-union", algo="reduce",
+                           schedule="cheap-fused")
+    graphs, parts = (g, g4, g5), (pg, pg4, pg5)
+    reduce_a2a = cfg(schedule="cheap-fused", exchange="a2a")
+    reduce_ag = cfg(schedule="cheap-fused", exchange="allgather")
+    edges = cfg(schedule="edges-only", exchange="allgather")
+    # the first run of a spawn also pays each rank's first-use costs, so
+    # compare the two exchanges' seconds across runs in both orders
+    jobs = [("reduce a2a", mesh.PEJob("reduce", reduce_a2a), red_snap),
+            ("reduce allgather", mesh.PEJob("reduce", reduce_ag), red_snap),
+            ("rg allgather", mesh.PEJob("rg", edges), rg_snap),
+            ("rnp allgather (cut)", mesh.PEJob("rnp", edges, part=1),
+             rnp_snap),
+            (f"reduce a2a n={DIST_LOCAL_N}",
+             mesh.PEJob("reduce", reduce_a2a, part=2), loc_snap),
+            (f"rg allgather n={DIST_LOCAL_N}",
+             mesh.PEJob("rg", edges, part=2), None)]
+    phase("dist", f"world {p}, gloo, every rank on cuda:0 (one card: NCCL "
+                  f"refuses two ranks on one device, so NCCL at world > 1 "
+                  f"is not run here); {len(jobs)} runs on one spawn")
+    outs, stats = mesh.run_shard_map(list(parts), [j for _, j, _ in jobs],
+                                     backend="gloo", device="cuda",
+                                     directory=str(ROOT / "build"))
+    phase("dist", f"hand-off {stats['handoff_seconds']:.3f}s (pack the "
+                  f"stacked plans, write one .npz a PE) spawn "
+                  f"{stats['spawn_seconds']:.3f}s (until the last rank "
+                  f"joined the group) call {stats['seconds']:.3f}s")
+    launches = 0
+    for (label, job, snap), out in zip(jobs, outs):
+        board = parts[job.part]
+        per_round = p * (board.B if job.cfg.exchange == "allgather"
+                         else board.S) * 5
+        launches += dist_launches(label, out)
+        if not (out["rounds"] == out["rounds"][0]).all():
+            fail(f"dist {label}: the ranks ran different round counts")
+        res = dict(out)
+        if "members" in out:
+            res["members"] = D.members_global_per_pe(board, out["members"])
+            if not graphs[job.part].is_independent_set(res["members"]):
+                fail(f"dist {label}: the members are not independent")
+        line = "" if snap is None else "; " + against_union(
+            graphs[job.part], res, snap)
+        phase("dist", f"{label}: {job.algo}/{job.cfg.schedule}/"
+                      f"{job.cfg.backend} rounds={int(out['rounds'][0])} "
+                      f"seconds={np.round(out['seconds'], 3).tolist()} "
+                      f"(file load {float(out['load_seconds'].max()):.3f}) "
+                      f"board bytes a rank receives a round={per_round} "
+                      f"(int32 w + int8 status; B={board.B} S={board.S}) "
+                      f"segment_fused launches="
+                      f"{out['launches']['segment_fused'].tolist()}{line}")
+    same_outputs("reduce", outs[1], outs[0], "the a2a exchange's run")
+    phase("dist", f"n={base.n}: reduce allgather == reduce a2a in every "
+                  f"output, rounds and fold log included, bit for bit")
+
+    # the runs of the smaller instances, held against the same four ranks
+    # on the CPU (plain version) rank for rank: at these sizes the per-PE
+    # rounds differ from the union's
+    cpu_jobs = [(label, job._replace(part=job.part - 1))
+                for label, job, _ in jobs[3:]]
+    cpu, cst = mesh.run_shard_map([pg4, pg5], [j for _, j in cpu_jobs],
+                                  backend="gloo", device="cpu",
+                                  directory=str(ROOT / "build"))
+    for (label, _), got, want in zip(cpu_jobs, outs[3:], cpu):
+        same_outputs(label, got, want, "the same ranks on the CPU")
+    phase("dist", f"{', '.join(l for l, _ in cpu_jobs)}: every output and "
+                  f"the rounds == the same four ranks on the CPU, bit for "
+                  f"bit (spawn {cst['spawn_seconds']:.3f}s, runs "
+                  f"{[round(float(o['seconds'].max()), 3) for o in cpu]}s)")
+
+    tiny = argparse.Namespace(**{**vars(base), "n": DIST_NCCL_N, "p": 1})
+    g1, pg1 = mwis_run.prepare(tiny)
+    one = drive(tiny, g1, pg1, "dist-nccl-union", True, algo="rg",
+                schedule="edges-only")
+    (out,), st = mesh.run_shard_map([pg1], [mesh.PEJob("rg", edges)],
+                                    backend="nccl", device="cuda",
+                                    directory=str(ROOT / "build"))
+    launches += dist_launches("nccl", out)
+    if not np.array_equal(D.members_global_per_pe(pg1, out["members"]),
+                          one["members"]):
+        fail("dist nccl: members differ from the union rg run at p = 1")
+    phase("dist", f"world 1, NCCL, rg at n={DIST_NCCL_N}, p = 1: members == "
+                  f"the union run (one PE: its own flag is the union's); "
+                  f"spawn {st['spawn_seconds']:.3f}s run "
+                  f"{float(out['seconds'][0]):.3f}s (NCCL at world size > 1 "
+                  f"needs one card a rank: not held here)")
+
+    # the kernel on rank 0's per-PE plan (its row of the stacked arrays the
+    # hand-off packed) with the first sweep's payload columns
+    arrs = D.shard_map_arrays(pg, reduce_a2a)
+    aux, _, plan, t = D._unpack_per_pe({k: v[0] for k, v in arrs.items()},
+                                       "cuda")
+    del arrs
+    rank0 = argparse.Namespace(plan=plan, aux=aux)
+    state = R.init_state(t["w0"], t["is_local"], t["is_ghost"])
+    rec = fused_at("dist-kernel rank 0", rank0,
+                   fused_args(rank0, state, reduce_a2a.schedule), opts.reps)
+    rec["launches"] = launches
+    phase("dist", f"phase seconds={time.time() - t_phase:.1f} (four ranks "
+                  f"share one card and the host: no multi-GPU time)")
+    return rec
+
+
 def serve_chunk(svc, reqs, cell_name: str):
     """One cell's stacked chunk as the service stacks it: its first 64
     requests of the cell (its cached problems, its E_BLK high-water mark)
@@ -1249,6 +1464,8 @@ def main() -> None:
                     help="RGG vertices of the main-path instance")
     ap.add_argument("--rnp-n", type=int, default=1 << 16,
                     help="RGG vertices of the reduce-and-peel run")
+    ap.add_argument("--dist-rnp-n", type=int, default=1 << 12,
+                    help="RGG vertices of phase 17's rnp runs")
     ap.add_argument("--p", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
@@ -1320,6 +1537,7 @@ def main() -> None:
     del ref
     rg = drive(base, g, pg, "full", True, algo="rg", schedule="edges-only")
     rg_members, rg_seconds = rg["members"], rg["seconds"]
+    red_snap, rg_snap = union_snapshot(red, opts.p), union_snapshot(rg, opts.p)
     kfull = kernel_at_full_size(red, opts.reps)
     wfull = wedge_at_full_size(red, opts.reps)
     replay_seconds(red, "reduce/cheap-fused")
@@ -1355,6 +1573,7 @@ def main() -> None:
     staged = descent_phase(base, g, pg, rg_members, rg_seconds)
     dk = resume_phase(base, g, pg, staged, opts.reps)
     dk["launches"] = staged["launches"]
+    xk = dist_phase(base, g, pg, red_snap, rg_snap, opts)
 
     kfull.update(launches=launches,
                  max_abs_err=max(err, kfull["max_abs_err"]))
@@ -1375,6 +1594,7 @@ def main() -> None:
     ) for name, (_, sources) in libs.items()]
     rows.append(fused_row("segment_fused_batched", sk))
     rows.append(fused_row("segment_fused_last_rung", dk))
+    rows.append(fused_row("segment_fused_dist", xk))
     phase("done", f"total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,6 @@
 """DisReduS / DisReduA — the paper's distributed reduction algorithms (§5).
 
-Port of the union half of :mod:`repro.core.distributed`.  Round structure
-(Algorithm 5.1):
+Port of :mod:`repro.core.distributed`.  Round structure (Algorithm 5.1):
 
   while global reduction progress:
       LocalReduce(G_i)            — §5.1, vectorized rule sweeps to fixpoint
@@ -9,15 +8,25 @@ Port of the union half of :mod:`repro.core.distributed`.  Round structure
 
 DisReduA (§5.4) is bounded staleness: each PE exchanges after
 ``stale_sweeps`` rule sweeps instead of waiting for its local fixpoint.
-All PEs run stacked into one block-diagonal graph on one device (the union
-path); the round loop is a host loop over a device change flag, with the
-reference ``lax.while_loop``'s trip count.
+
+Two execution paths share all rule and exchange code:
+
+  * union path — all PEs stacked into one block-diagonal graph on one
+    device (:func:`disredu_union`);
+  * per-PE path — one rank of a ``torch.distributed`` process group a PE
+    (the reference's shard_map path; "mesh" there is a process group
+    here), boards exchanged by collectives (:func:`disredu_shard_map_fn`;
+    ranks are started by :mod:`repro_torch.launch.mesh`).
+
+Each round loop is a host loop over a device change flag (on the per-PE
+path, its OR over the ranks), with the reference ``lax.while_loop``'s trip
+count.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +47,7 @@ class DisReduConfig:
     use_heavy: bool = True
     mode: str = "sync"            # "sync" = DisReduS | "async" = DisReduA
     stale_sweeps: int = 2         # async: sweeps between exchanges
+    exchange: str = "allgather"   # "allgather" | "a2a"  (per-PE path)
     schedule: str = "cheap"       # named rule schedule (engine.SCHEDULES)
     backend: str = "torch"        # aggregate backend: torch | blocked | cuda
     max_rounds: int = 10_000
@@ -203,37 +213,48 @@ def stack_problems(probs: Sequence[UnionProblem],
 
 
 # --------------------------------------------------------------------- #
-# union path (single-device SPMD simulation)
+# the DisRedu round loop, and the union path (single-device simulation)
 # --------------------------------------------------------------------- #
-def _round_union(state, prob: UnionProblem, cfg: DisReduConfig):
-    state = local_reduce(
-        state, prob.aux, heavy_k=cfg.heavy_k, use_heavy=cfg.use_heavy,
-        max_sweeps=cfg.sweeps_per_round, schedule=cfg.schedule,
-        backend=cfg.backend, plan=prob.plan,
-    )
-    state, _ = X.exchange_union(
-        state, prob.aux, prob.halo, backend=cfg.backend, plan=prob.plan,
-    )
-    return state
-
-
-def moved(state: R.RedState, snap_s: torch.Tensor,
-          snap_w: torch.Tensor) -> bool:
-    """Did a round change any status or weight?  (One device sync.)"""
-    return bool((state.status != snap_s).any() | (state.w != snap_w).any())
+def reduce_rounds(state, aux, exchange, gany, cfg: DisReduConfig,
+                  plan=None, max_rounds: Optional[int] = None):
+    """DisRedu rounds until one changes nothing anywhere or ``max_rounds``
+    (default ``cfg.max_rounds``) have run; returns (state, rounds,
+    changed_last).  A round is ``local_reduce`` to ``cfg.sweeps_per_round``
+    sweeps, then ``exchange(state) -> (state, changed)``; ``gany`` reads a
+    round's change flag on the host: ``bool`` on the union path, the OR
+    over the ranks on the per-PE path (the reference's ``psum``), once a
+    round.  The sweeps inside a round read each PE's own flag on the
+    per-PE path (the reference's ``local_reduce`` is rank-local), so a PE
+    that went quiet runs heavy vertex and stops sweeping on its own.
+    ``changed`` starts True and is tested before each round, as the
+    reference's ``while_loop`` cond is."""
+    limit = cfg.max_rounds if max_rounds is None else max_rounds
+    rounds, changed = 0, True
+    while changed and rounds < limit:
+        snap_s, snap_w = state.status, state.w
+        state = local_reduce(
+            state, aux, heavy_k=cfg.heavy_k, use_heavy=cfg.use_heavy,
+            max_sweeps=cfg.sweeps_per_round, schedule=cfg.schedule,
+            backend=cfg.backend, plan=plan,
+        )
+        state, _ = exchange(state)
+        changed = gany((state.status != snap_s).any()
+                       | (state.w != snap_w).any())
+        rounds += 1
+    return state, rounds, changed
 
 
 def disredu_union(prob: UnionProblem,
                   cfg: DisReduConfig) -> Tuple[R.RedState, int]:
     """DisRedu rounds from the initial state until no round changes
     anything (or ``cfg.max_rounds``); returns (state, rounds)."""
+    def exchange(state):
+        return X.exchange_union(state, prob.aux, prob.halo,
+                                backend=cfg.backend, plan=prob.plan)
+
     state = R.init_state(prob.w0, prob.is_local, prob.is_ghost)
-    rounds, changed = 0, True
-    while changed and rounds < cfg.max_rounds:
-        snap_s, snap_w = state.status, state.w
-        state = _round_union(state, prob, cfg)
-        changed = moved(state, snap_s, snap_w)
-        rounds += 1
+    state, rounds, _ = reduce_rounds(state, prob.aux, exchange, bool, cfg,
+                                     plan=prob.plan)
     return state, rounds
 
 
@@ -245,6 +266,100 @@ def disredu(
     prob = build_union_problem(pg, cfg.backend, cfg.r_blk, device)
     state, rounds = disredu_union(prob, cfg)
     return state, prob, rounds
+
+
+# --------------------------------------------------------------------- #
+# per-PE path (one rank of a torch.distributed process group a PE)
+# --------------------------------------------------------------------- #
+def shard_map_arrays(pg: PartitionedGraph,
+                     cfg: DisReduConfig) -> Dict[str, np.ndarray]:
+    """The stacked [p, ...] host arrays the per-PE path consumes (the
+    reference's keys): the partitioned graph plus, for the blocked
+    backends, the per-PE blocked-ELL plan packed host-side with a shared
+    E_BLK (:func:`~repro_torch.core.engine.build_plan_stacked`).  Rank i
+    takes row i of each (:func:`_unpack_per_pe`)."""
+    arrs = dict(pg.device_arrays())
+    if cfg.backend != "torch":
+        plan = E.build_plan_stacked(
+            pg.row, pg.V, r_blk=cfg.r_blk,
+            cols=pg.col, gids=pg.gid, windows=pg.window,
+            win_adj_bits=pg.win_adj_bits,
+        )
+        arrs["plan_perm"] = plan.edge_perm.numpy()
+        arrs["plan_lrow"] = plan.lrow.numpy()
+        arrs["plan_wbits"] = plan.wbits.numpy()
+        arrs["plan_wnh"] = plan.wnh.numpy()
+        # the row-block height as a zero-size axis, as the reference keeps it
+        arrs["plan_rblk"] = np.zeros((pg.p, plan.r_blk, 0), dtype=np.int32)
+    return arrs
+
+
+def _unpack_per_pe(a: Dict[str, np.ndarray], device: torch.device | str):
+    """One PE's row of :func:`shard_map_arrays` → ``(aux, halo, plan,
+    tensors)`` on ``device``.  The halo takes the per-PE layout: ghosts are
+    slots ``L .. L+G-1`` (``V = L + G + 1``), a ghost's owner is clamped to
+    rank 0 on padding, ``send_slot`` pads to board slot B and
+    ``recv_ghost`` to scratch slot G."""
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+         for k, v in a.items()}
+    G = a["ghost_owner_slot"].shape[0]
+    L = a["w0"].shape[0] - G - 1
+    aux = R.Aux(
+        row=t["row"], col=t["col"], gid=t["gid"], is_local=t["is_local"],
+        is_iface=t["is_iface"], owner_rank=t["owner_pe"],
+        window=t["window"], win_complete=t["win_complete"],
+        win_adj_bits=t["win_adj_bits"], edge_common=t["edge_common"],
+    )
+    halo = X.Halo(
+        iface_slots=t["iface_slots"],
+        ghost_vertex=L + torch.arange(G, dtype=torch.int32, device=device),
+        ghost_owner_pe=t["owner_pe"][L : L + G].clamp(min=0),
+        ghost_owner_slot=t["ghost_owner_slot"],
+        ghost_valid=t["is_ghost"][L : L + G],
+        send_slot=t["send_slot"], recv_ghost=t["recv_ghost"],
+    )
+    plan = None
+    if "plan_perm" in a:
+        r_blk = a["plan_rblk"].shape[0]
+        plan = E.SegPlan(
+            edge_perm=t["plan_perm"], lrow=t["plan_lrow"], r_blk=r_blk,
+            extent=E.live_extent(t["plan_lrow"], r_blk),
+            wbits=t["plan_wbits"], wnh=t["plan_wnh"],
+        )
+    return aux, halo, plan, t
+
+
+def disredu_shard_map_fn(
+    a: Dict[str, np.ndarray], cfg: DisReduConfig, *, group=None,
+    device: torch.device | str | None = None,
+) -> Tuple[R.RedState, int]:
+    """DisRedu rounds on this rank's PE; returns (state, rounds).
+
+    ``a`` is this rank's row of :func:`shard_map_arrays`; ``group`` is the
+    process group of the PEs (the reference's shard_map mesh; default: the
+    default group), one rank a PE.  The rounds are :func:`reduce_rounds`'
+    with :func:`~repro_torch.core.exchange.exchange_shmap` by
+    ``cfg.exchange`` and the round's change flag ORed over the group
+    (``all_reduce``, read on the host as the union loop reads its flag), so
+    every rank stops in the same round.  The sweeps are rank-local, as the
+    reference's are: a PE whose cheap rules go quiet runs heavy vertex
+    while the union path's global flag still holds it back, so the rounds
+    and, on some instances, the reduced graph differ from the union
+    path's, as the reference's own shard_map's do.  The reference returns
+    the shard_map'd function; here each rank calls this directly."""
+    dev = resolve_device(device)
+    aux, halo, plan, t = _unpack_per_pe(a, dev)
+
+    def exchange(state):
+        return X.exchange_shmap(state, aux, halo, group=group,
+                                method=cfg.exchange, backend=cfg.backend,
+                                plan=plan)
+
+    state = R.init_state(t["w0"], t["is_local"], t["is_ghost"])
+    state, rounds, _ = reduce_rounds(
+        state, aux, exchange, lambda flag: X.global_any(flag, group), cfg,
+        plan=plan)
+    return state, rounds
 
 
 # --------------------------------------------------------------------- #
@@ -337,3 +452,12 @@ def members_global(
     gids = np.asarray(pg.gid.reshape(-1))
     members[gids[in_set & is_local]] = True
     return members
+
+
+def members_global_per_pe(pg: PartitionedGraph,
+                          members: np.ndarray) -> np.ndarray:
+    """[n_global] bool member mask from per-PE memberships [p, V]."""
+    glob = np.zeros(pg.n_global, dtype=bool)
+    sel = members & pg.is_local
+    glob[pg.gid[sel]] = True
+    return glob

@@ -38,7 +38,7 @@ import torch
 
 from repro_torch.core import rules as R
 from repro_torch.kernels.segment_coo.ops import (
-    pack_blocks, segment_fused_coo, segment_fused_plain,
+    pack_blocks, pack_blocks_stacked, segment_fused_coo, segment_fused_plain,
 )
 from repro_torch.kernels.segment_coo.ref import (
     live_extent, segment_max, segment_min, segment_or_ref, segment_sum,
@@ -129,7 +129,9 @@ class SegPlan(NamedTuple):
     leading axis — ``edge_perm`` / ``lrow`` ``[B, n_blocks, E_BLK]`` with
     per-instance edge ids — and its ``wbits`` / ``wnh`` are the instances'
     payloads one after another, ``[B*E]``: the union edge order of a
-    stacked problem (``distributed.stack_problems``).
+    stacked problem (``distributed.stack_problems``).  The per-PE path's
+    :func:`build_plan_stacked` keeps ``wbits`` / ``wnh`` ``[p, E]``
+    instead: each rank takes its row of every field, an unbatched plan.
 
     ``extent`` is derived from ``lrow`` (:func:`live_extent`): one past
     each row block's last live slot, so the kernel reads none of the
@@ -227,6 +229,41 @@ def build_plan(
     if window is not None:
         wb, wn = _window_payloads(row, col, gid, window, win_adj_bits)
         wbits, wnh = dev(wb), dev(wn)
+    lrow = dev(lrow)
+    return SegPlan(edge_perm=dev(perm), lrow=lrow, r_blk=r_blk,
+                   wbits=wbits, wnh=wnh, extent=live_extent(lrow, r_blk))
+
+
+def build_plan_stacked(
+    rows: np.ndarray, n_rows: int, *, r_blk: Optional[int] = R_BLK,
+    cols: Optional[np.ndarray] = None, gids: Optional[np.ndarray] = None,
+    windows: Optional[np.ndarray] = None,
+    win_adj_bits: Optional[np.ndarray] = None,
+    device: torch.device | str = "cpu",
+) -> SegPlan:
+    """Stacked [p, ...] plan for the per-PE path (shared E_BLK).
+
+    Unlike a :func:`stack_plans` batch, every field keeps one row a PE:
+    ``edge_perm`` / ``lrow`` ``[p, n_blocks, E_BLK]``, ``extent`` ``[p,
+    n_blocks]`` and ``wbits`` / ``wnh`` ``[p, E]``, so rank i's plan is
+    row i of each.  ``r_blk=None`` autotunes one shared height over all
+    PEs' rows."""
+    rows = np.asarray(rows)
+    if r_blk is None:
+        r_blk = autotune_r_blk(rows, n_rows)
+    perm, lrow, _ = pack_blocks_stacked(
+        rows, n_rows, r_blk=r_blk, e_blk_multiple=E_BLK_MULTIPLE
+    )
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    wbits = wnh = None
+    if windows is not None:
+        pay = [_window_payloads(rows[i], cols[i], gids[i], windows[i],
+                                win_adj_bits[i]) for i in range(len(rows))]
+        wbits = dev(np.stack([wb for wb, _ in pay]))
+        wnh = dev(np.stack([wn for _, wn in pay]))
     lrow = dev(lrow)
     return SegPlan(edge_perm=dev(perm), lrow=lrow, r_blk=r_blk,
                    wbits=wbits, wnh=wnh, extent=live_extent(lrow, r_blk))

@@ -1,15 +1,21 @@
-"""Border exchange — §5.2 "Communicating Reduction Progress", union layout.
+"""Border exchange — §5.2 "Communicating Reduction Progress".
 
-Port of the union half of :mod:`repro.core.exchange`.  Two message types,
+Port of :mod:`repro.core.exchange`.  Two message types,
 as the paper defines them: (1) weight decrease — interface weights are
 re-published so ghost copies stay valid upper bounds (Lemma 4.2); (2) vertex
 status — excluded / proposed-to-include updates, with the Lemma 4.4/4.5
 rank tie-breaking for conflicting include proposals.
 
-In the union layout all PEs are stacked into one block-diagonal graph on a
-single device, so the all-gather of interface *boards* is plain indexing
-across the stacked [p, ...] halo.  The per-PE layout over
-``torch.distributed`` collectives is not ported yet.
+Both layouts drive the same :func:`reconcile` core:
+
+  * union layout — all PEs stacked into one block-diagonal graph on a
+    single device, so the all-gather of interface *boards* is plain
+    indexing across the stacked [p, ...] halo (:func:`exchange_union`);
+  * per-PE layout — one rank of a ``torch.distributed`` process group a
+    PE (the reference's shard_map mesh), boards exchanged by collectives
+    (:func:`exchange_shmap`): ``allgather`` publishes every PE's board,
+    O(p·B) bytes a PE; ``a2a`` sends each PE only the entries it ghosts,
+    O(p·S) bytes.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import engine as E
 from repro_torch.core import rules as R
@@ -30,15 +37,19 @@ I32_MAX = torch.iinfo(torch.int32).max
 
 
 class Halo(NamedTuple):
-    """Halo routing, stacked [p, ...] for the union layout."""
+    """Halo routing: stacked [p, ...] with union indices for the union
+    layout (shapes in brackets below), or one PE's slice with local indices
+    for the per-PE layout (``distributed._unpack_per_pe``: iface_slots [B]
+    padded with the PE's nil slot, ghost_vertex ``L + arange(G)``, the
+    other ghost fields [G], send_slot / recv_ghost [p, S])."""
 
     iface_slots: torch.Tensor       # [p, B] union idx of board slots (pad = p*V)
     ghost_vertex: torch.Tensor      # [p, G] union vertex index of each ghost
     ghost_owner_pe: torch.Tensor    # [p, G] rank owning the ghost (pad = 0)
     ghost_owner_slot: torch.Tensor  # [p, G] slot in owner's board (pad = 0)
     ghost_valid: torch.Tensor       # [p, G] bool
-    send_slot: torch.Tensor         # [p, p, S] board slots per destination
-    recv_ghost: torch.Tensor        # [p, p, S] ghost slot per source
+    send_slot: torch.Tensor         # [p, p, S] board slots per destination (pad = B)
+    recv_ghost: torch.Tensor        # [p, p, S] ghost slot per source (pad = G)
 
 
 def make_halo(pg: PartitionedGraph,
@@ -158,13 +169,87 @@ def reconcile(
 
 
 # --------------------------------------------------------------------- #
-# union boards
+# boards: per-PE collectives, then the union layout
 # --------------------------------------------------------------------- #
 def _board(state: R.RedState,
            iface_slots: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Board values; padded slots index nil → weight 0 / EXCLUDED (ignored
     because padded ghosts are invalid on the receiving side)."""
     return state.w[iface_slots], state.status[iface_slots]
+
+
+def _wire(x: torch.Tensor, group) -> torch.Tensor:
+    """The tensor a collective of ``group`` takes for ``x``.  NCCL takes the
+    device tensor.  gloo is a host transport: the (small) board or flag is
+    copied to the host here, explicitly, and the caller copies the result
+    back to ``x``'s device."""
+    if dist.get_backend(group) == dist.Backend.GLOO:
+        return x.cpu()
+    return x
+
+
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """[n] on every rank → [p, n] (row r from rank r), on x's device.
+    ``all_gather_into_tensor``: torch 2.11 has no ``all_gather_single``,
+    the name torch 2.13 gives it (and warns on this one)."""
+    src = _wire(x, group).contiguous()
+    out = src.new_empty((dist.get_world_size(group) * src.shape[0],))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.view(-1, src.shape[0]).to(x.device)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """[p, S]: row d goes to rank d; returns [p, S], row s from rank s (the
+    reference's tiled ``all_to_all`` over axis 0), on x's device."""
+    src = _wire(x, group).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(x.device)
+
+
+def global_any(flag: torch.Tensor, group=None) -> bool:
+    """OR of a bool flag over the ranks of ``group``: ``all_reduce(SUM)`` of
+    an int32 flag, > 0, read on the host (the reference's ``psum``)."""
+    x = _wire(flag.to(I32).reshape(1), group)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return bool(x.item() > 0)
+
+
+def exchange_shmap(
+    state: R.RedState, aux: R.Aux, halo: Halo, *, group=None,
+    method: str = "allgather",
+    backend: str = "torch", plan: Optional[E.SegPlan] = None,
+) -> Tuple[R.RedState, torch.Tensor]:
+    """Per-PE exchange over the collectives of ``group`` (the reference's
+    shard_map mesh axis; default: the default process group), one rank a
+    PE.  ``allgather`` gathers every rank's [B] board and indexes it by
+    (ghost owner, slot); ``a2a`` gathers each destination's send list from
+    the board extended by one padding entry (0 / EXCLUDED), swaps them with
+    ``all_to_all_single`` and scatters by ``recv_ghost`` into G + 1 slots,
+    trimmed to G (slot G takes the padding)."""
+    bw, bs = _board(state, halo.iface_slots)
+    if method == "allgather":
+        pe, slot = halo.ghost_owner_pe.long(), halo.ghost_owner_slot.long()
+        gw = _all_gather(bw, group)[pe, slot]
+        gs = _all_gather(bs, group)[pe, slot]
+    elif method == "a2a":
+        send = halo.send_slot.long()
+        recv_w = _all_to_all(torch.cat([bw, bw.new_zeros(1)])[send], group)
+        recv_s = _all_to_all(
+            torch.cat([bs, bs.new_full((1,), EXCLUDED)])[send], group)
+        n_ghost = halo.ghost_vertex.shape[0]
+        tgt = halo.recv_ghost.reshape(-1).long()
+        gw = bw.new_zeros(n_ghost + 1)
+        gw[tgt] = recv_w.reshape(-1)
+        gs = bs.new_zeros(n_ghost + 1)
+        gs[tgt] = recv_s.reshape(-1)
+        gw, gs = gw[:n_ghost], gs[:n_ghost]
+    else:
+        raise ValueError(f"unknown exchange method {method!r}")
+    return reconcile(
+        state, aux, halo.ghost_vertex, halo.ghost_valid, gw, gs,
+        backend=backend, plan=plan,
+    )
 
 
 def union_boards(

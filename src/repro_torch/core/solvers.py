@@ -13,8 +13,11 @@ Port of the union half of :mod:`repro.core.solvers`:
 
 The algorithm bodies are written over an abstract :class:`Ctx` (exchange,
 global-any, per-PE peel); :func:`_union_ctx` instantiates it for the union
-layout.  Every ``lax.while_loop`` of the reference is a host loop reading
-one device flag per trip, with the reference's trip count.
+layout and :func:`solver_shard_map_fn` for the per-PE path (one rank of a
+``torch.distributed`` process group a PE; ``launch.mesh.run_shard_map``
+starts the ranks and runs jobs on them).  Every ``lax.while_loop`` of the
+reference is a host loop reading one device flag per trip (on the per-PE
+path, its OR over the ranks), with the reference's trip count.
 
 :func:`solve_staged` is the staged solve with adaptive shape descent: the
 same loop bodies run in bounded stages, and between stages the alive
@@ -37,9 +40,8 @@ from repro_torch.core import exchange as X
 from repro_torch.core import partition as part
 from repro_torch.core import rules as R
 from repro_torch.core.distributed import (
-    DisReduConfig, UnionProblem, build_union_problem, moved,
+    DisReduConfig, UnionProblem, build_union_problem,
 )
-from repro_torch.core.local_reduce import local_reduce
 from repro_torch.core.partition import PartitionedGraph
 
 UNDECIDED, INCLUDED, EXCLUDED, FOLDED = 0, 1, 2, 3
@@ -58,30 +60,10 @@ class Ctx(NamedTuple):
 # --------------------------------------------------------------------- #
 # algorithm bodies (layout-agnostic)
 # --------------------------------------------------------------------- #
-def _reduce_rounds(state, aux, ctx: Ctx, cfg: DisReduConfig, plan=None,
-                   max_rounds: Optional[int] = None):
-    """DisRedu rounds until one changes nothing or ``max_rounds`` (default
-    ``cfg.max_rounds``) have run; returns (state, rounds, changed_last).
-    ``changed`` starts True and is tested before each round, as the
-    reference's ``while_loop`` cond is."""
-    limit = cfg.max_rounds if max_rounds is None else max_rounds
-    rounds, changed = 0, True
-    while changed and rounds < limit:
-        snap_s, snap_w = state.status, state.w
-        state = local_reduce(
-            state, aux, heavy_k=cfg.heavy_k, use_heavy=cfg.use_heavy,
-            max_sweeps=cfg.sweeps_per_round, schedule=cfg.schedule,
-            backend=cfg.backend, plan=plan,
-        )
-        state, _ = ctx.exchange(state)
-        changed = moved(state, snap_s, snap_w)
-        rounds += 1
-    return state, rounds, changed
-
-
 def _reduce_to_fixpoint(state, aux, ctx: Ctx, cfg: DisReduConfig,
                         plan=None):
-    state, rounds, _ = _reduce_rounds(state, aux, ctx, cfg, plan=plan)
+    state, rounds, _ = D.reduce_rounds(state, aux, ctx.exchange, ctx.gany,
+                                       cfg, plan=plan)
     return state, rounds
 
 
@@ -263,6 +245,44 @@ def global_members(pg: PartitionedGraph, prob: UnionProblem,
 
 
 # --------------------------------------------------------------------- #
+# per-PE instantiation (one rank of a torch.distributed group a PE)
+# --------------------------------------------------------------------- #
+def solver_shard_map_fn(a, cfg: DisReduConfig, algo: str, *, group=None,
+                        device: torch.device | str | None = None):
+    """Solve on this rank's PE: ``(state, members [V] bool, loop trips)``.
+
+    ``a`` is this rank's row of :func:`~repro_torch.core.distributed.
+    shard_map_arrays`; ``group`` is the PEs' process group (the reference's
+    shard_map mesh; default: the default group).  The :class:`Ctx`
+    exchanges by ``cfg.exchange`` over the group's collectives, ORs flags
+    with ``all_reduce`` and peels the PE's own argmax (first index among
+    ties; its nil slot ``V-1`` when nothing is left), as the reference's
+    ``solver_shard_map_fn`` does inside shard_map.  The reference returns
+    the shard_map'd function; here each rank calls this directly."""
+    dev = resolve_device(device)
+    aux, halo, plan, t = D._unpack_per_pe(a, dev)
+
+    def exch(state):
+        return X.exchange_shmap(
+            state, aux, halo, group=group, method=cfg.exchange,
+            backend=cfg.backend, plan=plan,
+        )
+
+    def peel(state, score):
+        top = torch.argmax(score)
+        idx = torch.where(score[top] > I32_MIN, top, score.shape[0] - 1)
+        status = state.status.clone()
+        status[idx] = EXCLUDED
+        return state._replace(status=status)
+
+    ctx = Ctx(exchange=exch, gany=lambda x: X.global_any(x, group),
+              peel=peel)
+    state = R.init_state(t["w0"], t["is_local"], t["is_ghost"])
+    state, trips = run_algorithm(state, aux, ctx, cfg, algo, plan=plan)
+    return state, R.reconstruct_members(state, aux), trips
+
+
+# --------------------------------------------------------------------- #
 # staged solve with adaptive shape descent (kernel compaction)
 # --------------------------------------------------------------------- #
 class LadderCell(NamedTuple):
@@ -315,7 +335,7 @@ def _stage_union(state, prob: UnionProblem, cfg: DisReduConfig,
     are stale until the next reduce round's exchange, which is why the
     staged solve never descends right after a peel); flag = remaining.
 
-    The stages run the monolithic loops' own bodies (:func:`_reduce_rounds`,
+    The stages run the monolithic loops' own bodies (``reduce_rounds``,
     :func:`_greedy_rounds`), so resuming a phase across stage boundaries is
     exact: reduce rounds are idempotent at fixpoint, greedy re-evaluates
     `remaining` from the statuses, and the rnp loop body is
@@ -323,8 +343,8 @@ def _stage_union(state, prob: UnionProblem, cfg: DisReduConfig,
     """
     ctx = _union_ctx(prob, cfg.backend)
     if phase == "reduce":
-        return _reduce_rounds(state, prob.aux, ctx, cfg, plan=prob.plan,
-                              max_rounds=iters)
+        return D.reduce_rounds(state, prob.aux, ctx.exchange, ctx.gany, cfg,
+                               plan=prob.plan, max_rounds=iters)
     if phase == "greedy":
         return _greedy_rounds(state, prob.aux, ctx, iters,
                               backend=cfg.backend, plan=prob.plan)

@@ -38,6 +38,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+#: The kernels, by the names their launches are counted under.
+KERNELS = ("segment_fused", "segment_sum", "wedge_intersect", "embedding_bag")
+
 #: Launches of each kernel in this process, by kernel name.
 _launches: collections.Counter[str] = collections.Counter()
 

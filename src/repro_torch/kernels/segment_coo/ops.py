@@ -43,6 +43,25 @@ def pack_blocks(
     return edge_perm, lrow, e_blk
 
 
+def pack_blocks_stacked(
+    rows: np.ndarray, n_rows: int, *, r_blk: int = 8, e_blk_multiple: int = 1,
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Stacked packing for the per-PE path: rows is [p, E]; every PE is
+    packed against the same n_rows and padded to a SHARED E_BLK (max over
+    PEs), so the per-PE plans stack into one [p, n_blocks, E_BLK] array
+    that hands each rank its row."""
+    packed = [pack_blocks(r, n_rows, r_blk=r_blk,
+                          e_blk_multiple=e_blk_multiple) for r in rows]
+    e_blk = max(pb[2] for pb in packed)
+    n_blocks = packed[0][0].shape[0]
+    edge_perm = np.zeros((len(packed), n_blocks, e_blk), dtype=np.int64)
+    lrow = np.full((len(packed), n_blocks, e_blk), r_blk, dtype=np.int32)
+    for i, (perm_i, lrow_i, eb_i) in enumerate(packed):
+        edge_perm[i, :, :eb_i] = perm_i
+        lrow[i, :, :eb_i] = lrow_i
+    return edge_perm, lrow, e_blk
+
+
 def _unblock(out: torch.Tensor, n_rows: int, batch: int = 1) -> torch.Tensor:
     """[(B,) n_blocks, R_BLK, D] → the first n_rows rows of each instance's
     [n_blocks*R_BLK, D], instances one after another: [B*n_rows, D]."""

@@ -34,9 +34,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mode", default="async", choices=("sync", "async"))
     ap.add_argument("--exchange", default="allgather",
                     choices=("allgather", "a2a"),
-                    help="collective of the multi-device path; accepted "
-                         "for the reference's flag set and unused here (the "
-                         "union path indexes boards directly)")
+                    help="collective of the per-PE path's exchange "
+                         "(DisReduConfig.exchange; the union path run here "
+                         "indexes boards directly)")
     ap.add_argument("--window-cap", type=int, default=16)
     ap.add_argument("--heavy-k", type=int, default=8)
     ap.add_argument("--schedule", default="cheap",
@@ -67,6 +67,14 @@ def prepare(args: argparse.Namespace):
     return g, pg
 
 
+def config(args: argparse.Namespace) -> D.DisReduConfig:
+    """The solver configuration the flags ask for."""
+    return D.DisReduConfig(
+        heavy_k=args.heavy_k, mode=args.mode, exchange=args.exchange,
+        schedule=args.schedule, backend=args.backend,
+    )
+
+
 def run(args: argparse.Namespace, g, pg) -> dict:
     """Solve the partitioned instance and print the stats line(s).
 
@@ -74,10 +82,7 @@ def run(args: argparse.Namespace, g, pg) -> dict:
     mask, ``rounds`` (DisRedu rounds for --algo reduce, peel iterations for
     rnp, else 0), ``seconds`` (the printed time, which includes the union
     build), ``build_seconds`` and, for the solver algos, ``weight``."""
-    cfg = D.DisReduConfig(
-        heavy_k=args.heavy_k, mode=args.mode, schedule=args.schedule,
-        backend=args.backend,
-    )
+    cfg = config(args)
     t0 = time.time()
     prob = D.build_union_problem(pg, cfg.backend, cfg.r_blk, args.device)
     build_s = time.time() - t0

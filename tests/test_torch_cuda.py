@@ -30,6 +30,7 @@ from repro_torch.kernels.segment_coo.ops import (
 from repro_torch.kernels.wedge_intersect import kernel as WK
 from repro_torch.kernels.wedge_intersect.ops import common_neighbor_stats
 from repro_torch.kernels.wedge_intersect.ref import common_neighbor_stats_ref
+from repro_torch.launch import mesh
 
 pytestmark = pytest.mark.gpu
 
@@ -321,6 +322,53 @@ def test_cuda_solve_matches_cpu(cuda, algo, mode):
     for f in ("w", "status", "log_kind", "log_v", "log_u", "log_n",
               "offset"):
         assert torch.equal(getattr(gs, f).cpu(), getattr(cs, f)), f
+
+
+def _dist_jobs(exchange):
+    return [mesh.PEJob("reduce", D.DisReduConfig(
+                mode="async", exchange=exchange, schedule="cheap-fused",
+                backend="cuda")),
+            mesh.PEJob("rg", D.DisReduConfig(
+                mode="async", exchange=exchange, schedule="edges-only",
+                backend="cuda"))]
+
+
+@pytest.mark.parametrize("exchange", ["allgather", "a2a"])
+def test_dist_on_cuda_matches_cpu(cuda, exchange, tmp_path):
+    """The per-PE path, 4 gloo ranks on the card (kernel backend) == the
+    same 4 ranks on the CPU (plain version), rank for rank, and each rank
+    launched the kernel and no other."""
+    g = gen.rgg2d(2000, avg_deg=8, seed=0)
+    pg = part.partition_graph(g, 4, window_cap=16)
+    jobs = _dist_jobs(exchange)
+    on_gpu, _ = mesh.run_shard_map([pg], jobs, device="cuda",
+                                directory=str(tmp_path))
+    on_cpu, _ = mesh.run_shard_map([pg], jobs, device="cpu",
+                                directory=str(tmp_path))
+    for job, got, want in zip(jobs, on_gpu, on_cpu):
+        for k in want:
+            if k not in ("seconds", "load_seconds", "launches"):
+                np.testing.assert_array_equal(got[k], want[k],
+                                              err_msg=f"{job.algo}: {k}")
+        assert (got["launches"]["segment_fused"] > 0).all(), job.algo
+        assert all((got["launches"][k] == 0).all()
+                   for k in kernels.KERNELS if k != "segment_fused")
+    assert g.is_independent_set(D.members_global_per_pe(
+        pg, on_gpu[1]["members"]))
+
+
+def test_nccl_one_rank_matches_union(cuda, tmp_path):
+    """NCCL at world size 1 (one card a rank): rg on the per-PE path ==
+    the union solve at p = 1 on the card."""
+    g = gen.rgg2d(2000, avg_deg=8, seed=1)
+    pg = part.partition_graph(g, 1, window_cap=16)
+    job = _dist_jobs("allgather")[1]
+    (out,), _ = mesh.run_shard_map([pg], [job], backend="nccl", device="cuda",
+                                directory=str(tmp_path))
+    members, state = S.solve(pg, "rg", job.cfg, device=cuda)
+    np.testing.assert_array_equal(
+        D.members_global_per_pe(pg, out["members"]), members)
+    np.testing.assert_array_equal(out["status"][0], state.status.cpu())
 
 
 #: A two-rung ladder an RGG of 2,000 vertices on 2 PEs (L 1,005, E 7,936

@@ -1,6 +1,7 @@
 """The port stands alone: importing and running it — the solver, the staged
 solver with its checkpoint and fault harness, the serving layer (with
-descent on) and both CLIs — loads neither JAX nor the reference package,
+descent on), both CLIs and the per-PE path's spawned ranks — loads neither
+JAX nor the reference package,
 an entry point without ``device=`` refuses to run when no GPU is visible,
 and CPU tensors never count as kernel launches — neither on the solver's
 or the service's path nor through the three kernel ops off it."""
@@ -126,6 +127,53 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED" in res.stdout
+
+
+RANKS = textwrap.dedent("""
+    import numpy as np
+
+    for name in ("jax", "jaxlib", "repro"):
+        try:
+            __import__(name)
+        except ImportError:
+            pass
+        else:
+            raise AssertionError(f"{name} imports despite the stand-in")
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import partition as part
+    from repro_torch.core import solvers as S
+    from repro_torch.graphs import generators as gen
+    from repro_torch.launch import mesh
+
+    g = gen.rgg2d(200, avg_deg=6, seed=0)
+    pg = part.partition_graph(g, 2, window_cap=8)
+    cfg = D.DisReduConfig(mode="async", exchange="a2a",
+                          schedule="cheap-fused", backend="cuda")
+    outs, _ = mesh.run_shard_map([pg], [mesh.PEJob("reduce", cfg),
+                                     mesh.PEJob("rnp", cfg)], device="cpu")
+    members, _ = S.solve(pg, "rnp", cfg, device="cpu")
+    assert np.array_equal(D.members_global_per_pe(pg, outs[1]["members"]),
+                          members)
+    print("RANKS ISOLATED")
+""")
+
+
+def test_spawned_ranks_import_no_jax(tmp_path):
+    """The per-PE path's ranks (spawned interpreters, which import their
+    entry's module afresh) run with stand-ins for ``jax``, ``jaxlib`` and
+    ``repro`` first on the path that raise when imported, so a rank that
+    loaded any of them would fail the run."""
+    for name in ("jax", "jaxlib", "repro"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('the port must not import {name}')\n")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{SRC}",
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", RANKS], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "RANKS ISOLATED" in res.stdout
 
 
 def test_port_sources_never_import_the_reference():
