@@ -55,8 +55,19 @@ continues):
  14. serve   — ``repro_torch.launch.serve --arch mwis`` on the card: the
                reference's stream of 192 requests over the three serve
                cells (4 per topology, up to serve_m: L 1,024, E 16,384),
-               batches of 64, ``rg`` on ``cuda`` (verify full) and on
-               ``torch`` (must agree per request bit for bit), ``greedy`` on
+               batches of 64, every run with the CLI's defaults (the chunk
+               pipeline on, every visible card): ``rg`` on ``cuda``
+               (verify full) and on ``torch`` (must agree per request bit
+               for bit), then ``rg`` on ``cuda`` with ``--no-pipeline``
+               (equal request by request; every chunk of the pipelined
+               run pipelined, none of this one's; both runs' rates,
+               latencies, stage medians and overlap ratios, and each
+               service's device busy share of a warm batch of 64), with
+               ``--devices 1`` (equal to the default run), with
+               ``--devices`` one past the visible count (exits 2 naming
+               the visible count), and with two shards on the one card
+               (the serve mesh's ``visible_devices`` seam: equal to
+               ``--devices 1``; no speed is read from it), ``greedy`` on
                ``cuda`` (each result the sequential priority greedy's),
                ``rnp`` on ``cuda`` on 48 requests (its host peel loop),
                ``rg`` on ``cuda`` with ``--descent auto`` (its serve_m
@@ -959,7 +970,8 @@ def serve_run(opts, label: str, need_launches: bool, **over) -> dict:
     argv = ["--arch", "mwis", "--batch", "64", "--device", "cuda",
             "--seed", str(opts.seed)]
     for k, v in over.items():
-        argv += [f"--{k.replace('_', '-')}", str(v)]
+        flag = f"--{k.replace('_', '-')}"
+        argv += [flag] if v is True else [flag, str(v)]
     args = serve_cli.build_parser().parse_args(argv)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -977,6 +989,10 @@ def serve_run(opts, label: str, need_launches: bool, **over) -> dict:
                    f"batches={tp['batches']} p50_ms={tp['p50_ms']} "
                    f"p99_ms={tp['p99_ms']} max_ms={tp['max_ms']} "
                    f"stage_p50_ms={st['stage_p50_ms']} "
+                   f"devices={st['devices']} pipeline={st['pipeline']} "
+                   f"chunks={st['chunks']} "
+                   f"pipelined_chunks={st['pipelined_chunks']} "
+                   f"overlap_ratio={st['overlap_ratio']} "
                    f"cache_hits={st['cache_hits']} "
                    f"cache_misses={st['cache_misses']} "
                    f"e_blk_hwm={st['e_blk_hwm']} "
@@ -984,6 +1000,9 @@ def serve_run(opts, label: str, need_launches: bool, **over) -> dict:
                    f"seconds={out['seconds']:.2f}")
     if st["fallbacks"] or st["backend_active"] != args.backend:
         fail(f"{label}: the service left its backend ({st['events']})")
+    if st["pipeline_retries"]:
+        fail(f"{label}: {st['pipeline_retries']} pipelined chunk(s) "
+             f"retried ({out['service'].events})")
     if st["verify_failures"] or any(not r.ok for r in out["results"]):
         fail(f"{label}: a request failed or did not verify")
     if need_launches and out["launches"] <= 0:
@@ -993,6 +1012,85 @@ def serve_run(opts, label: str, need_launches: bool, **over) -> dict:
     if any(counts.values()):
         fail(f"{label}: a kernel off the serving path launched: {counts}")
     return out
+
+
+def same_requests(label: str, got: dict, want: dict) -> None:
+    """Fail unless two serve runs gave every request the same members and
+    weight."""
+    import numpy as np
+
+    for i, (a, b) in enumerate(zip(got["results"], want["results"])):
+        if a.weight != b.weight or not np.array_equal(a.members, b.members):
+            fail(f"serve: {label} disagree on request {i}")
+    phase("serve", f"{label}: members and weight of all "
+                   f"{len(got['results'])} requests identical")
+
+
+def serve_pipeline(opts, rg: dict) -> list:
+    """Phase 14's pipeline and serve-mesh runs beside the default run
+    ``rg`` (rg / cuda, pipeline on, every visible card); returns them."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import mesh
+    from repro_torch.launch import serve as serve_cli
+
+    off = serve_run(opts, "rg cuda --no-pipeline", True, algo="rg",
+                    backend="cuda", requests=192, verify="full",
+                    no_pipeline=True)
+    same_requests("rg cuda pipeline on and off", rg, off)
+    s_on, s_off = rg["service"].stats, off["service"].stats
+    if not (s_on["pipelined_chunks"] == s_on["chunks"] > 0
+            and s_off["pipelined_chunks"] == 0 < s_off["chunks"]):
+        fail(f"serve: pipelined chunks {s_on['pipelined_chunks']} of "
+             f"{s_on['chunks']} (on), {s_off['pipelined_chunks']} of "
+             f"{s_off['chunks']} (off)")
+    for label, run in (("on", rg), ("off", off)):
+        tp, st = run["throughput"], run["service"].stats
+        phase("serve", f"pipeline {label}: inst_per_s="
+                       f"{tp['instances_per_sec']} p50_ms={tp['p50_ms']} "
+                       f"p99_ms={tp['p99_ms']} "
+                       f"stage_p50_ms={st['stage_p50_ms']} "
+                       f"overlap_ratio={st['overlap_ratio']} "
+                       f"chunks={st['chunks']} "
+                       f"pipelined={st['pipelined_chunks']}")
+    for label, run in (("on", rg), ("off", off)):
+        svc, first = run["service"], run["requests"][:64]
+        device_profile(f"serve rg/cuda pipeline {label}, one warm batch "
+                       f"of 64 (3 chunks)",
+                       lambda: svc.solve_batch(first), top=8)
+    one = serve_run(opts, "rg cuda --devices 1", True, algo="rg",
+                    backend="cuda", requests=192, verify="full", devices=1)
+    same_requests("rg cuda --devices 1 and the default run", one, rg)
+    visible = torch.cuda.device_count()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            serve_cli.main(["--arch", "mwis", "--device", "cuda",
+                            "--devices", str(visible + 1)])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    if code != 2 or f"the {visible} visible" not in err.getvalue():
+        fail(f"serve: --devices {visible + 1} exited {code}: "
+             f"{err.getvalue()!r}")
+    phase("serve", f"--devices {visible + 1}: exit 2, "
+                   f"{err.getvalue().strip()!r}")
+    seam = mesh.visible_devices
+    mesh.visible_devices = lambda kind: (torch.device("cuda", 0),) * 2
+    try:
+        two = serve_run(opts, "rg cuda, two shards on one card (no speed "
+                        "read)", True, algo="rg", backend="cuda",
+                        requests=192, verify="full", devices=2)
+    finally:
+        mesh.visible_devices = seam
+    if {r["devices"] for r in two["service"]._stage_log} != {2}:
+        fail("serve: the two-shard run did not split its chunks in two")
+    same_requests("rg cuda two shards on one card and --devices 1", two,
+                  one)
+    return [off, one, two]
 
 
 def serve_descent(opts, off: dict) -> dict:
@@ -1381,8 +1479,8 @@ def serve_chunk(svc, reqs, cell_name: str):
             if SV.bucket_for(g.n, g.num_directed_edges, svc.cells) is cell]
     topos, _ = svc._pack_requests(cell, idxs[:64], reqs, [None] * len(reqs),
                                   svc.cfg.backend)
-    prob = svc._stage_chunk(cell, topos, svc.cfg.backend,
-                            dict(pack_ms=0.0, transfer_ms=0.0)).prob
+    prob, = svc._stage_chunk(cell, topos, svc.cfg.backend, svc._new_rec(
+        cell, svc.cfg.backend, pipelined=False)).probs
     state = R.init_state(prob.w0, prob.is_local, prob.is_ghost)
     return prob, fused_args(prob, state, cell.schedule)
 
@@ -1426,11 +1524,8 @@ def serve_phase(opts) -> dict:
                    requests=192, verify="full")
     ref = serve_run(opts, "rg torch", False, algo="rg", backend="torch",
                     requests=192)
-    for i, (a, b) in enumerate(zip(rg["results"], ref["results"])):
-        if a.weight != b.weight or not np.array_equal(a.members, b.members):
-            fail(f"serve: cuda and torch backends disagree on request {i}")
-    phase("serve", "rg cuda == torch backend: members and weight of all "
-                   f"{len(rg['results'])} requests identical")
+    same_requests("rg cuda and torch backends", rg, ref)
+    more = serve_pipeline(opts, rg)
     gr = serve_run(opts, "greedy cuda", True, algo="greedy", backend="cuda",
                    requests=192, verify="full")
     for i, (g, r) in enumerate(zip(gr["requests"], gr["results"])):
@@ -1443,17 +1538,12 @@ def serve_phase(opts) -> dict:
     rnp = serve_run(opts, "rnp cuda", True, algo="rnp", backend="cuda",
                     requests=48, verify="full")
     dsc = serve_descent(opts, rg)
-    # where a warm batch's time goes: the stream's first 64 requests (about
-    # 21 of each cell, three chunks) once more on rg / cuda
-    svc, first = rg["service"], rg["requests"][:64]
-    device_profile("serve rg/cuda, one batch of 64 (3 chunks)",
-                   lambda: svc.solve_batch(first), top=8)
     for name in ("serve_xs", "serve_s"):
         batched_kernel_at(rg["service"], rg["requests"], name, opts.reps)
     kern = batched_kernel_at(rg["service"], rg["requests"], "serve_m",
                              opts.reps)
     kern["launches"] = (rg["launches"] + gr["launches"] + rnp["launches"]
-                        + dsc["launches"])
+                        + dsc["launches"] + sum(r["launches"] for r in more))
     phase("serve", f"phase seconds={time.time() - t0:.1f}")
     return kern
 

@@ -13,9 +13,10 @@ into: an incoming instance lands in the smallest cell with ``L >= n`` and
 serve window cap; ``seg_blk`` fixes the blocked-ELL row-block height per
 cell (a batch shares one ``r_blk``) and ``e_blk`` floors the shared edge
 budget (the serving layer grows it as a high-water mark).
-The reference's multi-device knobs (``serve_devices``, ``pipeline`` and
-``serve_knobs``) are left out: the port serves on one card, synchronously
-(ROADMAP Queue 1 item 4).
+``serve_devices`` caps how many serve-mesh devices a cell's batch axis is
+split over (None: the whole mesh) and ``pipeline`` opts a cell out of the
+overlapped chunk pipeline; :func:`serve_knobs` reads both, as the
+service's ``ServeCell`` rows do.
 Descent cells are the rungs above ``serve_m`` that the staged solver
 (:func:`repro_torch.core.solvers.solve_staged`) re-packs onto, and the
 entry shapes of instances too large for every serve cell.
@@ -28,13 +29,16 @@ from typing import Any, Dict
 MWIS_SHAPES: Dict[str, Dict[str, Any]] = {
     "serve_xs": dict(kind="serve", L=64, E=1024, G=4, B=4, S=4, D=8,
                      Dc=4, schedule="cheap-fused",
-                     seg_blk=dict(r_blk=8, e_blk=64)),
+                     seg_blk=dict(r_blk=8, e_blk=64),
+                     serve_devices=None, pipeline=True),
     "serve_s": dict(kind="serve", L=256, E=4096, G=4, B=4, S=4, D=8,
                     Dc=4, schedule="cheap-fused",
-                    seg_blk=dict(r_blk=16, e_blk=160)),
+                    seg_blk=dict(r_blk=16, e_blk=160),
+                    serve_devices=None, pipeline=True),
     "serve_m": dict(kind="serve", L=1024, E=16384, G=4, B=4, S=4, D=8,
                     Dc=4, schedule="cheap-fused",
-                    seg_blk=dict(r_blk=32, e_blk=320)),
+                    seg_blk=dict(r_blk=32, e_blk=320),
+                    serve_devices=None, pipeline=True),
     "descent_l": dict(kind="descent", L=4096, E=65536, G=64, B=64, S=64,
                       D=8, Dc=4, schedule="cheap-fused",
                       seg_blk=dict(r_blk=32, e_blk=512)),
@@ -57,6 +61,16 @@ MWIS_SERVE_BATCH_SIZES = (1, 4, 16, 64)
 def rule_schedule(shape_name: str) -> str:
     """The named rule schedule a shape cell reduces with."""
     return MWIS_SHAPES[shape_name].get("schedule", "cheap-fused")
+
+
+def serve_knobs(shape_name: str) -> dict:
+    """Per-cell multi-device serving knobs of a kind="serve" shape row:
+    ``serve_devices`` caps the batch-axis mesh for the cell (None = whole
+    serve mesh), ``pipeline`` opts the cell out of the overlapped chunk
+    pipeline."""
+    meta = MWIS_SHAPES[shape_name]
+    return dict(serve_devices=meta.get("serve_devices"),
+                pipeline=meta.get("pipeline", True))
 
 
 def serve_cell_names() -> tuple:

@@ -24,11 +24,27 @@ What differs from the reference:
     result bit for bit.  On the ``cuda`` backend every aggregate of the
     chunk is one launch of the ``segment_fused`` kernel over the stacked
     plan (one grid row per instance).
-  * **one card, no pipeline** — ``devices > 1`` (the serve mesh) and
-    ``pipeline=True`` (the double-buffered chunk pipeline; both ROADMAP
-    Queue 1 item 4) raise :class:`NotImplementedError`.
-    ``ServeConfig.pipeline`` therefore defaults to False here: chunks run
-    one after another.
+  * **the serve mesh** — the reference shards a stacked chunk's batch
+    axis over a ``serve`` mesh and runs one SPMD program.  Here the mesh
+    is the first ``devices`` visible devices of ``ServeConfig.device``'s
+    type (:func:`repro_torch.launch.mesh.make_serve_mesh`) and the padded
+    chunk splits into one stacked union problem a device (a *shard*),
+    each solved by its own worker thread on its own CUDA stream.  Batch
+    sizes round up to a multiple of the active device count with phantom
+    repeat-last instances, as the reference's do.  Each shard runs to its
+    own fixpoint (the reference couples trip counts through its
+    while-loop's OR); every round body is idempotent at its fixpoint, so
+    each instance's bits are the same either way.
+  * **the chunk pipeline** — the reference's control flow
+    (``_dispatch_chunk`` / ``_retire_chunk`` / ``_run_chunks``): while
+    chunk k solves, the calling thread packs and stacks chunk k+1 on each
+    device's copy stream and copies its weight planes from pinned host
+    memory without blocking; the shard's solve stream waits on the copy's
+    event.  "Launch without blocking" means handing the shard to its
+    device's worker thread (the port's solve is a host loop); the worker
+    returns the members and touches no service state.  A dispatch or
+    in-flight failure, a worker's exception included, re-runs the chunk
+    through the synchronous path, which owns the fallback chain.
   * **shape descent** — ``descent="auto"`` is the reference's: requests
     whose cell has ``L >= descent_min_L`` are solved one at a time by the
     staged solver (:func:`repro_torch.core.solvers.solve_staged`), and
@@ -40,9 +56,11 @@ What differs from the reference:
     kernel that fails to build or launch turns the chunk's requests into
     ``REASON_BACKEND_FAILED`` results instead of running the plain
     version on the card.
-  * **device** — cached problems live on ``ServeConfig.device`` (default
-    ``cuda``; without a visible GPU the service refuses to start unless
-    ``device="cpu"``); a chunk's weight planes go host→device in one copy.
+  * **device** — cached problems, and the descent path, live on the
+    serve mesh's first device (``ServeConfig.device`` names the type,
+    default ``cuda``; without a visible GPU the service refuses to start
+    unless ``device="cpu"``); a shard's weight planes go host→device in
+    one copy.
 """
 
 from __future__ import annotations
@@ -50,6 +68,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor, wait
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,6 +82,7 @@ from repro_torch.core import solvers as SOL
 from repro_torch.core import validate as V
 from repro_torch.core.graph import Graph
 from repro_torch.core.partition import partition_graph
+from repro_torch.launch import mesh as M
 
 #: Backend degradation order: a failing backend falls to the next entry.
 #: ``cuda`` (the hand-written kernel) has none: its failure is an error.
@@ -74,9 +94,7 @@ FALLBACK_CHAIN = {
 
 
 class ServeCell(NamedTuple):
-    """One resolved serving bucket (a kind="serve" MWIS_SHAPES row): the
-    reference's fields without its multi-device knobs (``serve_devices``,
-    ``pipeline``; ROADMAP Queue 1 item 4)."""
+    """One resolved serving bucket (a kind="serve" MWIS_SHAPES row)."""
 
     name: str
     L: int      # max vertices
@@ -89,6 +107,8 @@ class ServeCell(NamedTuple):
     schedule: str
     r_blk: int  # blocked-ELL row-block height (shared across the cell)
     e_blk: int  # blocked-ELL edge-budget floor (high-water mark seed)
+    serve_devices: Optional[int] = None  # batch-axis device cap (None=mesh)
+    pipeline: bool = True                # overlapped chunk pipeline opt-out
 
 
 def _cells_of_kind(kind: str) -> Tuple[ServeCell, ...]:
@@ -103,6 +123,7 @@ def _cells_of_kind(kind: str) -> Tuple[ServeCell, ...]:
             schedule=meta.get("schedule", "cheap-fused"),
             r_blk=seg.get("r_blk", E.R_BLK),
             e_blk=seg.get("e_blk", E.E_BLK_MULTIPLE),
+            **CFG.serve_knobs(name),
         ))
     cells.sort(key=lambda c: (c.L, c.E))
     return tuple(cells)
@@ -204,34 +225,63 @@ def _backend_failed(n: int, backend: str, err: Exception) -> ServeResult:
         f"backend {backend!r} failed with no fallback left: {err}")
 
 
+def _to_device(x, dev: torch.device):
+    """A union problem (NamedTuples of tensors) copied to ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, non_blocking=True)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_device(v, dev) for v in x))
+    return x
+
+
+class _Lane(NamedTuple):
+    """One serve-mesh device as the service drives it: a worker thread
+    that solves its shards one after another, and, on a CUDA device, a
+    copy stream (stacking and weight planes) and a solve stream (None on
+    the CPU)."""
+
+    device: torch.device
+    worker: ThreadPoolExecutor
+    copy: Optional[torch.cuda.Stream]
+    solve: Optional[torch.cuda.Stream]
+
+
 class _Staged(NamedTuple):
-    """A chunk stacked into one union problem on the device, ready to
-    solve."""
+    """A chunk stacked into one union problem a shard, each on its lane's
+    device with its copies issued, ready to solve."""
 
     cell: ServeCell
     backend: str
     topos: Tuple[Topology, ...]   # the real (unpadded) chunk members
-    prob: D.UnionProblem          # p = static batch size
+    probs: Tuple[D.UnionProblem, ...]  # a shard each, p = batch / shards
+    ready: tuple                  # a shard's copy-done CUDA event, or None
     e_blk: int
     rec: dict                     # per-chunk stage-timing record
 
 
 class _Inflight(NamedTuple):
-    """A solved chunk whose members are still on the device."""
+    """A launched chunk: one worker future a shard, each giving the
+    shard's members [p, L+G+1] bool on its device once its stream is
+    done."""
 
     staged: _Staged
-    members: torch.Tensor         # [bt, L+G+1] bool
+    futures: Tuple[Future, ...]
     t_dispatch: float
+
+
+class _Pending(NamedTuple):
+    """A dispatched pipeline chunk awaiting retirement.  ``inflight`` is
+    None when dispatch itself failed — the retire step then re-runs the
+    chunk through the synchronous fallback-chain path."""
+
+    inflight: Optional[_Inflight]
+    cell: ServeCell
+    good: List[int]
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Serving knobs (algo/backend/schedule as in DisReduConfig).
-
-    ``devices`` (a serve mesh) and ``pipeline`` (the overlapped chunk
-    pipeline) are the reference's knobs for work not ported yet (ROADMAP
-    Queue 1 item 4): any value but the one-card, synchronous setting
-    raises at construction of the service."""
+    """Serving knobs (algo/backend/schedule as in DisReduConfig)."""
 
     algo: str = "rg"              # greedy | rg | rnp
     backend: str = "torch"        # torch | blocked | cuda
@@ -243,25 +293,31 @@ class ServeConfig:
     max_batch: int = 64           # largest admitted device batch
     validate: bool = True         # canonicalize/reject requests on admission
     verify: str = "off"           # post-solve audit: off | sample | full
-    devices: Optional[int] = None  # serve-mesh size: None or 1 (one card)
-    pipeline: bool = False        # overlapped chunk pipeline: not ported
+    # --- multi-device batch sharding + overlapped chunk pipeline ------ #
+    devices: Optional[int] = None  # serve-mesh size (None = every visible
+                                   # device; > visible raises at init)
+    pipeline: bool = True          # pack/stage/copy chunk k+1 while chunk
+                                   # k solves
     # --- shape descent (solvers.solve_staged) ------------------------- #
     descent: str = "off"          # off | auto — big cells take the staged
                                   # path and shrink mid-solve
     descent_min_L: int = 1024     # smallest cell L routed through descent
                                   # (default: serve_m and up)
     descent_every: int = 2        # stage length between descent checks
-    device: str = "cuda"          # torch device the service solves on
+    device: str = "cuda"          # device type the service solves on
+                                  # (cuda | cpu; the mesh picks the cards)
 
 
 class MWISService:
-    """Bucketing → plan cache → stacked union solve.
+    """Bucketing → plan cache → stacked union solve a shard.
 
     ``solve_batch`` groups requests by serve cell, pads each group to a
     static batch size (:data:`repro_torch.configs.mwis.
-    MWIS_SERVE_BATCH_SIZES`, phantom repeat-last instances, as the
-    reference does) and solves each (cell, ≤ max_batch) chunk as one
-    stacked problem.  Results come back in request order.
+    MWIS_SERVE_BATCH_SIZES`, rounded up to a multiple of the active device
+    count; phantom repeat-last instances, as the reference does) and
+    solves each (cell, ≤ max_batch) chunk as one stacked problem a serve
+    device, chunk k+1 staged while chunk k solves.  Results come back in
+    request order.  :meth:`close` stops the worker threads.
     """
 
     def __init__(self, cfg: ServeConfig = ServeConfig(),
@@ -282,18 +338,27 @@ class MWISService:
                 f"unknown descent mode {cfg.descent!r}; "
                 "available: ('off', 'auto')"
             )
-        if cfg.devices is not None and cfg.devices < 1:
-            raise ValueError(f"serve devices={cfg.devices} must be >= 1")
-        if cfg.devices is not None and cfg.devices > 1:
-            raise NotImplementedError(
-                f"devices={cfg.devices}: the multi-GPU serve mesh is "
-                "ROADMAP Queue 1 item 4; the port serves on one card")
-        if cfg.pipeline:
-            raise NotImplementedError(
-                "pipeline=True: the overlapped chunk pipeline is ROADMAP "
-                "Queue 1 item 4; chunks run synchronously")
+        dev = resolve_device(cfg.device)
+        if dev.index is not None:
+            raise ValueError(
+                f"ServeConfig.device={cfg.device!r}: give the device type "
+                "(cuda | cpu); the serve mesh takes the first `devices` "
+                "visible devices of it")
+        visible = len(M.visible_devices(dev.type))
+        if cfg.devices is not None and not 1 <= cfg.devices <= visible:
+            raise ValueError(
+                f"serve devices={cfg.devices} exceeds the {visible} "
+                f"visible {dev.type} device(s)")
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self._ndev = cfg.devices if cfg.devices is not None else visible
+        self._lanes = tuple(
+            _Lane(device=d,
+                  worker=ThreadPoolExecutor(1, thread_name_prefix="serve"),
+                  copy=torch.cuda.Stream(d) if d.type == "cuda" else None,
+                  solve=torch.cuda.Stream(d) if d.type == "cuda" else None)
+            for d in M.make_serve_mesh(self._ndev, dev.type))
+        # cached problems and the descent path: the mesh's first device
+        self.device = self._lanes[0].device
         self.cells = tuple(cells) if cells is not None else serve_cells()
         self.descent_cells = descent_entry_cells() \
             if cfg.descent == "auto" else ()
@@ -335,25 +400,46 @@ class MWISService:
             key, lambda: _pack_topology(g, cell, backend, self.device)
         )
 
-    def _batch_size(self, k: int) -> int:
+    def close(self) -> None:
+        """Stop the worker threads (after the shards queued on them)."""
+        for lane in self._lanes:
+            lane.worker.shutdown()
+
+    def _cell_ndev(self, cell: Optional[ServeCell]) -> int:
+        """Active device count for a cell's batch axis (cell cap ∧ mesh)."""
+        nd = max(1, self._ndev)
+        if cell is not None and cell.serve_devices:
+            nd = min(nd, cell.serve_devices)
+        return nd
+
+    def _batch_size(self, k: int, cell: Optional[ServeCell] = None) -> int:
         """Static batch size for a k-request chunk: the smallest admitted
-        bucket, else k itself up to the largest bucket."""
+        bucket, rounded up to a multiple of the active device count so the
+        batch splits into equal shards."""
+        nd = self._cell_ndev(cell)
+
+        def up(b: int) -> int:
+            return ((b + nd - 1) // nd) * nd
+
         for b in CFG.MWIS_SERVE_BATCH_SIZES:
             if b >= k and b <= self.cfg.max_batch:
-                return b
-        return max(k, min(max(CFG.MWIS_SERVE_BATCH_SIZES),
-                          self.cfg.max_batch))
+                return up(b)
+        return up(max(k, min(max(CFG.MWIS_SERVE_BATCH_SIZES),
+                             self.cfg.max_batch)))
 
     # ------------------------------------------------------------------ #
-    # solving: pack -> stage (stack + H2D) -> solve -> fetch
+    # solving: pack -> stage (stack + H2D a shard) -> solve -> fetch
     # ------------------------------------------------------------------ #
-    def _sync(self) -> None:
-        """Wait for the device, so each stage's time is its own."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _new_rec(self, cell: ServeCell, backend: str,
+                 pipelined: bool) -> dict:
+        return dict(cell=cell.name, backend=backend, batch=0, devices=1,
+                    pipelined=pipelined, pack_ms=0.0, transfer_ms=0.0,
+                    solve_ms=0.0, fetch_ms=0.0)
 
     def _log_stages(self, rec: dict) -> None:
         self.counters["chunks"] += 1
+        if rec["pipelined"]:
+            self.counters["pipelined_chunks"] += 1
         for k in ("pack", "transfer", "solve", "fetch"):
             self._stage_totals[k] += rec[k + "_ms"]
         self._stage_log.append(dict(rec))
@@ -388,55 +474,118 @@ class MWISService:
         self, cell: ServeCell, topos: List[Topology], backend: str,
         rec: dict,
     ) -> _Staged:
-        """Stack a chunk into one union problem of its static batch size
-        (phantom repeat-last instances, sliced off on fetch) and copy its
-        weight planes to the device."""
+        """Stack a chunk to its static batch size (phantom repeat-last
+        instances, sliced off on fetch), split it into one union problem
+        a shard over the cell's serve devices, and copy each shard's
+        weight planes from pinned host memory without blocking, all on
+        the lanes' copy streams.  A pipelined chunk does not wait: its
+        shards' solve streams wait on the ``ready`` events.  A synchronous
+        chunk waits for the copy streams, so its pack and transfer times
+        are the device's, as before the pipeline."""
         t0 = time.perf_counter()
         k = len(topos)
-        bt = self._batch_size(k)
+        nd = self._cell_ndev(cell)
+        bt = self._batch_size(k, cell)
         batch = list(topos) + [topos[-1]] * (bt - k)
-        w0 = np.concatenate([t.w0 for t in batch])
+        shards = [batch[s * bt // nd:(s + 1) * bt // nd] for s in range(nd)]
+        lanes = self._lanes[:nd]
         e_blk = 0
         if backend != "torch":
             need = max(t.prob.plan.edge_perm.shape[1] for t in batch)
             e_blk = max(self._eblk_hwm.get(cell.name, cell.e_blk), need)
             self._eblk_hwm[cell.name] = e_blk
-        prob = D.stack_problems([t.prob for t in batch],
-                                e_blk=e_blk or None)
-        self._sync()
+        sync = not rec["pipelined"]
+        probs = []
+        for lane, part in zip(lanes, shards):
+            with torch.cuda.stream(lane.copy):
+                if lane.copy is not None:
+                    # the cached problems were built on the calling
+                    # thread's stream of the service's device
+                    lane.copy.wait_stream(torch.cuda.current_stream(
+                        self.device))
+                prob = D.stack_problems([t.prob for t in part],
+                                        e_blk=e_blk or None)
+                if lane.device != self.device:
+                    prob = _to_device(prob, lane.device)
+            probs.append(prob)
+            if sync and lane.copy is not None:
+                lane.copy.synchronize()
         t1 = time.perf_counter()
-        prob = prob._replace(w0=torch.from_numpy(w0).to(self.device))
-        self._sync()
+        ready = []
+        for s, (lane, part) in enumerate(zip(lanes, shards)):
+            n = sum(t.w0.shape[0] for t in part)
+            if lane.copy is None:
+                w0 = torch.empty(n, dtype=torch.int32)
+            else:
+                # a pinned block is reused only after the copies issued
+                # from it are done (torch's caching host allocator)
+                w0 = torch.empty(n, dtype=torch.int32, pin_memory=True)
+            np.concatenate([t.w0 for t in part], out=w0.numpy())
+            event = None
+            with torch.cuda.stream(lane.copy):
+                if lane.copy is not None:
+                    w0 = w0.to(lane.device, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(lane.copy)
+            probs[s] = probs[s]._replace(w0=w0)
+            ready.append(event)
+            if sync and event is not None:
+                event.synchronize()
         t2 = time.perf_counter()
         rec["pack_ms"] += (t1 - t0) * 1e3
         rec["transfer_ms"] += (t2 - t1) * 1e3
         rec["batch"] = bt
+        rec["devices"] = nd
         return _Staged(cell=cell, backend=backend, topos=tuple(topos),
-                       prob=prob, e_blk=e_blk, rec=rec)
+                       probs=tuple(probs), ready=tuple(ready), e_blk=e_blk,
+                       rec=rec)
+
+    def _solve_shard(self, staged: _Staged, s: int) -> torch.Tensor:
+        """Worker body: solve shard ``s`` of ``staged`` on its lane's solve
+        stream, after its copies; returns its members once the stream is
+        done, so nothing of the shard is in flight after it returns (the
+        staged tensors outlive the call; no ``record_stream`` is needed).
+        Reads the config and touches no other service state."""
+        lane, prob = self._lanes[s], staged.probs[s]
+        cfg = self.cfg
+        with torch.cuda.stream(lane.solve):
+            try:
+                if lane.solve is not None:
+                    lane.solve.wait_event(staged.ready[s])
+                _, members = SOL.solve_union_arrays(
+                    prob.w0, prob.is_local, prob.is_ghost, prob.aux,
+                    prob.halo, prob.plan, algo=cfg.algo,
+                    heavy_k=cfg.heavy_k, use_heavy=cfg.use_heavy,
+                    sweeps=1_000_000, max_rounds=cfg.max_rounds, p=prob.p,
+                    schedule=cfg.schedule or staged.cell.schedule,
+                    backend=staged.backend,
+                )
+            finally:
+                if lane.solve is not None:
+                    lane.solve.synchronize()
+        return members
 
     def _launch_chunk(self, staged: _Staged) -> _Inflight:
-        """Solve the stacked chunk; its members stay on the device."""
+        """Hand each shard to its lane's worker; returns without blocking
+        (the calling thread is free to stage the next chunk)."""
         sched = self.cfg.schedule or staged.cell.schedule
-        cfg, prob = self.cfg, staged.prob
-        self._programs.add((staged.cell.name, staged.backend, cfg.algo,
+        self._programs.add((staged.cell.name, staged.backend, self.cfg.algo,
                             sched, staged.e_blk))
         t0 = time.perf_counter()
-        _, members = SOL.solve_union_arrays(
-            prob.w0, prob.is_local, prob.is_ghost, prob.aux, prob.halo,
-            prob.plan, algo=cfg.algo, heavy_k=cfg.heavy_k,
-            use_heavy=cfg.use_heavy, sweeps=1_000_000,
-            max_rounds=cfg.max_rounds, p=prob.p, schedule=sched,
-            backend=staged.backend,
-        )
-        return _Inflight(staged=staged, members=members, t_dispatch=t0)
+        futures = tuple(
+            self._lanes[s].worker.submit(self._solve_shard, staged, s)
+            for s in range(len(staged.probs)))
+        return _Inflight(staged=staged, futures=futures, t_dispatch=t0)
 
     def _fetch_chunk(self, inflight: _Inflight) -> List[np.ndarray]:
-        """Wait for the solve and read back the [n_i] masks."""
+        """Wait for every shard and read back the [n_i] masks; a shard's
+        exception (a worker's) is raised here."""
         rec = inflight.staged.rec
-        self._sync()
+        wait(inflight.futures)
         t1 = time.perf_counter()
         rec["solve_ms"] += (t1 - inflight.t_dispatch) * 1e3
-        members = inflight.members.cpu().numpy()
+        members = np.concatenate([f.result().cpu().numpy()
+                                  for f in inflight.futures])
         rec["fetch_ms"] += (time.perf_counter() - t1) * 1e3
         self._log_stages(rec)
         return [members[i, : t.n]
@@ -450,9 +599,7 @@ class MWISService:
         Raises on failure — `_solve_chunk` wraps it with the fallback
         chain.  (Tests monkeypatch this seam to inject backend failures.)
         """
-        rec = dict(cell=cell.name, backend=backend, batch=0, devices=1,
-                   pipelined=False, pack_ms=0.0, transfer_ms=0.0,
-                   solve_ms=0.0, fetch_ms=0.0)
+        rec = self._new_rec(cell, backend, pipelined=False)
         staged = self._stage_chunk(cell, topos, backend, rec)
         return self._fetch_chunk(self._launch_chunk(staged))
 
@@ -496,11 +643,71 @@ class MWISService:
                 for i in good:
                     out[i] = _backend_failed(graphs[i].n, backend, e)
                 return
-            for k, i in enumerate(good):
-                out[i] = self._finish_result(
-                    graphs[i], masks[k], check=(self.cfg.verify == "full")
-                    or (self.cfg.verify == "sample" and k == 0))
+            self._finish_chunk(good, graphs, masks, out)
             return
+
+    def _finish_chunk(self, good: List[int], graphs: List[Graph],
+                      masks: List[np.ndarray],
+                      out: List[Optional[ServeResult]]) -> None:
+        for k, i in enumerate(good):
+            out[i] = self._finish_result(
+                graphs[i], masks[k], check=(self.cfg.verify == "full")
+                or (self.cfg.verify == "sample" and k == 0))
+
+    # ------------------------------------------------------------------ #
+    # the double-buffered chunk pipeline
+    # ------------------------------------------------------------------ #
+    def _dispatch_chunk(
+        self,
+        cell: ServeCell,
+        idxs: List[int],
+        graphs: List[Graph],
+        out: List[Optional[ServeResult]],
+    ) -> Optional[_Pending]:
+        """Pack + stage + launch one chunk without blocking.  Returns None
+        when nothing in the chunk is solvable; a dispatch failure comes
+        back as a `_Pending` with ``inflight=None`` — retired by re-running
+        the chunk through the synchronous fallback-chain path."""
+        backend = self._backend
+        rec = self._new_rec(cell, backend, pipelined=True)
+        t0 = time.perf_counter()
+        topos, good = self._pack_requests(cell, idxs, graphs, out, backend)
+        rec["pack_ms"] += (time.perf_counter() - t0) * 1e3
+        if not good:
+            return None
+        try:
+            staged = self._stage_chunk(cell, topos, backend, rec)
+            inflight = self._launch_chunk(staged)
+        except Exception as e:  # noqa: BLE001 — degrade via the sync path
+            self.counters["pipeline_retries"] += 1
+            self.events.append(
+                ("pipeline_retry", cell.name, backend, str(e)))
+            return _Pending(inflight=None, cell=cell, good=good)
+        return _Pending(inflight=inflight, cell=cell, good=good)
+
+    def _retire_chunk(
+        self,
+        pending: _Pending,
+        graphs: List[Graph],
+        out: List[Optional[ServeResult]],
+    ) -> None:
+        """Fetch a dispatched chunk and finish its results; any failure
+        (dispatch or in-flight, a worker's exception included) re-runs
+        the chunk synchronously through `_solve_chunk`, which owns the
+        backend fallback chain."""
+        if pending.inflight is None:
+            self._solve_chunk(pending.cell, pending.good, graphs, out)
+            return
+        try:
+            masks = self._fetch_chunk(pending.inflight)
+        except Exception as e:  # noqa: BLE001 — degrade via the sync path
+            self.counters["pipeline_retries"] += 1
+            self.events.append(
+                ("pipeline_retry", pending.cell.name,
+                 pending.inflight.staged.backend, str(e)))
+            self._solve_chunk(pending.cell, pending.good, graphs, out)
+            return
+        self._finish_chunk(pending.good, graphs, masks, out)
 
     def _run_chunks(
         self,
@@ -508,10 +715,27 @@ class MWISService:
         graphs: List[Graph],
         out: List[Optional[ServeResult]],
     ) -> None:
-        """Run the batch's (cell, idxs) chunks one after another."""
+        """Run the batch's (cell, idxs) chunks, double-buffered: chunk
+        k+1 is packed/staged/launched while chunk k's solve is in flight.
+        Cells opted out of pipelining (and single-chunk batches) take the
+        synchronous path — results are identical either way, only the
+        overlap differs."""
         t_wall = time.perf_counter()
+        pipe = self.cfg.pipeline and len(chunks) > 1
+        pending: Optional[_Pending] = None
         for cell, idxs in chunks:
-            self._solve_chunk(cell, idxs, graphs, out)
+            if not (pipe and cell.pipeline):
+                if pending is not None:
+                    self._retire_chunk(pending, graphs, out)
+                    pending = None
+                self._solve_chunk(cell, idxs, graphs, out)
+                continue
+            nxt = self._dispatch_chunk(cell, idxs, graphs, out)
+            if pending is not None:
+                self._retire_chunk(pending, graphs, out)
+            pending = nxt
+        if pending is not None:
+            self._retire_chunk(pending, graphs, out)
         self._wall_s += time.perf_counter() - t_wall
 
     def _solve_staged_one(self, g: Graph, cell: ServeCell) -> ServeResult:
@@ -651,7 +875,7 @@ class MWISService:
         busy_ms = sum(self._stage_totals.values())
         wall_ms = self._wall_s * 1e3
         # fraction of summed stage time hidden under other chunks' time:
-        # 0.0 when chunks run one after another, as here
+        # 0.0 when serial (wall >= busy), higher when pipelined
         overlap = (max(0.0, 1.0 - wall_ms / busy_ms) if busy_ms > 0
                    else 0.0)
         return dict(
@@ -663,7 +887,7 @@ class MWISService:
             programs=len(self._programs), compiles=len(self._programs),
             e_blk_hwm=dict(self._eblk_hwm),
             backend=self.cfg.backend, backend_active=self._backend,
-            devices=1,
+            devices=max(1, self._ndev),
             pipeline=self.cfg.pipeline,
             stage_ms=stage_ms,
             stage_p50_ms=p50,

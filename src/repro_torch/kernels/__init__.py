@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -41,8 +42,14 @@ NVCC_FLAGS = (
 #: The kernels, by the names their launches are counted under.
 KERNELS = ("segment_fused", "segment_sum", "wedge_intersect", "embedding_bag")
 
-#: Launches of each kernel in this process, by kernel name.
+#: Launches of each kernel in this process, by kernel name.  The serving
+#: layer launches from several worker threads, so updates take the lock.
 _launches: collections.Counter[str] = collections.Counter()
+_launches_lock = threading.Lock()
+#: Held while a library is built and loaded: the serving layer's workers
+#: may reach a kernel's first launch together, and a build's temporary
+#: file is named by process, not by thread.
+_load_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -94,9 +101,15 @@ def build_many(libs: list[tuple[str, tuple[Path, ...]]]) -> list[Path]:
     return outs
 
 
-@functools.lru_cache(maxsize=None)
 def load(name: str, sources: tuple[Path, ...]) -> ctypes.CDLL:
-    """Build (if needed) and load one kernel library, once per process."""
+    """Build (if needed) and load one kernel library, once per process
+    (one thread at a time)."""
+    with _load_lock:
+        return _load(name, sources)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str, sources: tuple[Path, ...]) -> ctypes.CDLL:
     return ctypes.CDLL(str(build_many([(name, sources)])[0]))
 
 
@@ -142,13 +155,16 @@ def launch(kernel: str, fn, device: torch.device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
-    _launches[kernel] += 1
+    with _launches_lock:
+        _launches[kernel] += 1
 
 
 def launch_count(kernel: str) -> int:
     """Launches of ``kernel`` in this process since the last reset."""
-    return _launches[kernel]
+    with _launches_lock:
+        return _launches[kernel]
 
 
 def reset_launch_counts() -> None:
-    _launches.clear()
+    with _launches_lock:
+        _launches.clear()

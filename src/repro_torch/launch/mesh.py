@@ -16,7 +16,11 @@ and the mesh axis is the ranks' process group.
   * :func:`run_shard_map` — runs the per-PE path: hands each rank its
     PE's arrays in files, spawns the ranks once and runs every
     :class:`PEJob` (``distributed.disredu_shard_map_fn`` or
-    ``solvers.solver_shard_map_fn``) on them in :func:`shard_map_rank`.
+    ``solvers.solver_shard_map_fn``) on them in :func:`shard_map_rank`;
+  * :func:`make_serve_mesh` — the serving layer's batch axis
+    (:mod:`repro_torch.core.serve`): the first N visible devices of one
+    type, as :func:`visible_devices` lists them.  One process drives them
+    all, a worker thread a device; no process group is involved.
 
 Nothing switches backend or device when something fails.  The reference's
 TPU pod meshes (``make_production_mesh``) have no counterpart.
@@ -50,6 +54,33 @@ def pe_device(rank: int, device: torch.device | str | None = None
     if dev.type == "cuda":
         return torch.device("cuda", rank % torch.cuda.device_count())
     return dev
+
+
+def visible_devices(kind: str) -> tuple[torch.device, ...]:
+    """The devices of type ``kind`` a serve mesh may use: every visible
+    CUDA card, or the one CPU.  The single place the serving layer learns
+    what is visible; the CPU tests replace it to lay several shards on the
+    CPU, as the reference's force host devices with ``XLA_FLAGS``."""
+    if kind == "cuda":
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    return (torch.device(kind),)
+
+
+def make_serve_mesh(num_devices: int | None = None,
+                    device: torch.device | str = "cuda"
+                    ) -> tuple[torch.device, ...]:
+    """The serve mesh: the first ``num_devices`` visible devices of
+    ``device``'s type (``None``: every one).  Raises when more are asked
+    for than are visible."""
+    devs = visible_devices(torch.device(device).type)
+    if num_devices is None:
+        return devs
+    if not 1 <= num_devices <= len(devs):
+        raise ValueError(
+            f"make_serve_mesh: requested {num_devices} device(s) but only "
+            f"{len(devs)} visible")
+    return devs[:num_devices]
 
 
 def check_backend(backend: str, world: int,

@@ -1,17 +1,19 @@
-"""Serving entry point of the port: batched MWIS solving on one card.
+"""Serving entry point of the port: batched MWIS solving on the cards.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mwis --requests 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mwis --algo rnp \\
-        --backend cuda --batch 16 --repeat-topologies 4
+        --backend cuda --batch 16 --repeat-topologies 4 --devices 1 \\
+        --no-pipeline
 
 A stream of random instances is bucketed into the static serve cells,
 topology-cached and solved as stacked batches
 (:mod:`repro_torch.core.serve`); it reports sustained
 instances/sec, p50/p99 batch latency and plan-cache statistics.  Same
-flags and printed lines as ``repro.launch.serve --arch mwis``, without
-``--devices`` / ``--no-pipeline`` (the port serves on one card,
-synchronously; ROADMAP Queue 1 item 4), plus ``--device`` (default cuda;
-without a visible GPU it exits unless ``--device cpu`` is given).
+flags and printed lines as ``repro.launch.serve --arch mwis`` —
+``--devices`` (serve-mesh size; default every visible card, more than
+are visible exits 2) and ``--no-pipeline`` (chunks one after another)
+included — plus ``--device`` (default cuda; without a visible GPU it
+exits unless ``--device cpu`` is given).
 ``--descent auto`` sends serve_m requests through the staged solver and
 admits instances too large for every serve cell through the descent
 cells.  The other archs of the
@@ -24,10 +26,10 @@ import argparse
 import sys
 
 import numpy as np
-import torch
 
 from repro_torch.core import serve as SV
 from repro_torch.graphs.generators import gnm
+from repro_torch.launch import mesh
 
 ARCHES = ("mwis",)
 
@@ -49,8 +51,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--descent", default="off", choices=("off", "auto"),
                     help="shape descent: big cells shrink mid-solve and "
                          "oversize instances enter via descent cells")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="serve-mesh size for the sharded batch axis "
+                         "(default: every visible device; exits with an "
+                         "error when more are requested than exist)")
+    ap.add_argument("--no-pipeline", action="store_true",
+                    help="disable the overlapped chunk pipeline (chunks "
+                         "run synchronously)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device the service solves on (cuda | cpu)")
+                    help="device type the service solves on (cuda | cpu)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -84,7 +93,8 @@ def serve_mwis(args: argparse.Namespace) -> dict:
     results."""
     cfg = SV.ServeConfig(algo=args.algo, backend=args.backend,
                          max_batch=args.batch, verify=args.verify,
-                         descent=args.descent, device=args.device)
+                         descent=args.descent, devices=args.devices,
+                         pipeline=not args.no_pipeline, device=args.device)
     try:
         svc = SV.MWISService(cfg)
     except ValueError as e:
@@ -95,8 +105,10 @@ def serve_mwis(args: argparse.Namespace) -> dict:
           f"verify={cfg.verify} descent={cfg.descent} "
           f"batch<={cfg.max_batch} cells="
           f"{[f'{c.name}(L={c.L},E={c.E})' for c in cells]}")
-    visible = torch.cuda.device_count() if svc.device.type == "cuda" else 1
-    print(f"devices: 1/{visible} visible ({svc.device.type}) pipeline=off")
+    kind = svc.device.type
+    print(f"devices: {svc.stats['devices']}/"
+          f"{len(mesh.visible_devices(kind))} visible ({kind}) "
+          f"pipeline={'on' if cfg.pipeline else 'off'}")
 
     reqs = make_requests(cells, args.requests, args.repeat_topologies,
                          args.seed)
@@ -148,7 +160,7 @@ def serve_mwis(args: argparse.Namespace) -> dict:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    serve_mwis(args)
+    serve_mwis(args)["service"].close()
 
 
 if __name__ == "__main__":

@@ -292,6 +292,98 @@ def test_batched_serving_on_cuda_matches_torch(cuda, algo):
         np.testing.assert_array_equal(g.members, w.members)
 
 
+def _same_results(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.ok and w.ok and g.weight == w.weight
+        np.testing.assert_array_equal(g.members, w.members)
+
+
+def test_pipeline_on_cuda_matches_off(cuda):
+    """The chunk pipeline on the card (copy and solve streams, pinned
+    weight planes, a worker thread) against the synchronous service: every
+    request identical, every chunk pipelined, the kernel launched."""
+    from repro_torch.launch.serve import make_requests
+
+    reqs = make_requests(SV.serve_cells(), 24, 2, 0)
+    on = SV.MWISService(SV.ServeConfig(backend="cuda", max_batch=4,
+                                       verify="full"))
+    before = kernels.launch_count("segment_fused")
+    got = on.solve_batch(reqs)
+    assert kernels.launch_count("segment_fused") > before
+    off = SV.MWISService(SV.ServeConfig(backend="cuda", max_batch=4,
+                                        pipeline=False))
+    _same_results(got, off.solve_batch(reqs))
+    st = on.stats
+    assert st["pipelined_chunks"] == st["chunks"] == 6
+    assert st["pipeline_retries"] == 0 and st["fallbacks"] == 0
+    on.close()
+    off.close()
+
+
+def test_pipeline_weight_planes_of_one_cell_in_turn(cuda):
+    """Chunks of one cell and one topology with different weights, one
+    request a chunk: each chunk's weight planes go through a pinned host
+    block while the one before may still be copying, and every result
+    comes back as the synchronous service's."""
+    g = gen.gnm(200, 600, seed=4)
+    rng = np.random.default_rng(4)
+    reqs = [type(g)(indptr=g.indptr, indices=g.indices,
+                    weights=rng.integers(1, 201, g.n).astype(np.int32))
+            for _ in range(6)]
+    on = SV.MWISService(SV.ServeConfig(backend="cuda", max_batch=1,
+                                       verify="full"))
+    got = on.solve_batch(reqs)
+    off = SV.MWISService(SV.ServeConfig(backend="cuda", max_batch=1,
+                                        pipeline=False))
+    _same_results(got, off.solve_batch(reqs))
+    assert len({r.weight for r in got}) > 1
+    assert on.stats["pipelined_chunks"] == 6
+    assert on.stats["cache_misses"] == 1
+    on.close()
+    off.close()
+
+
+def test_pipeline_kernel_failure_in_a_worker(cuda, monkeypatch):
+    """A ``segment_fused`` failure inside a worker thread ends as
+    ``backend_failed`` on ``cuda``; no chunk runs the plain version."""
+    from repro_torch.core import engine
+    from repro_torch.core import validate as V
+    from repro_torch.launch.serve import make_requests
+
+    def broken(*a, **kw):
+        raise RuntimeError("injected kernel failure")
+
+    monkeypatch.setattr(engine, "segment_fused_coo", broken)
+    svc = SV.MWISService(SV.ServeConfig(backend="cuda", max_batch=4))
+    res = svc.solve_batch(make_requests(SV.serve_cells(), 8, 2, 0))
+    assert all(not r.ok and r.reason == V.REASON_BACKEND_FAILED
+               for r in res)
+    st = svc.stats
+    assert st["pipeline_retries"] == st["solve_errors"] == 3
+    assert st["fallbacks"] == 0 and st["backend_active"] == "cuda"
+    svc.close()
+
+
+def test_two_shards_on_one_card(cuda, monkeypatch):
+    """The sharded batch axis with both shards on the one card (the serve
+    mesh's ``visible_devices`` seam): bit for bit with ``devices=1``."""
+    from repro_torch.launch.serve import make_requests
+
+    reqs = make_requests(SV.serve_cells(), 12, 2, 0)
+    one = SV.MWISService(SV.ServeConfig(backend="cuda", max_batch=8,
+                                        devices=1))
+    want = one.solve_batch(reqs)
+    monkeypatch.setattr(mesh, "visible_devices",
+                        lambda kind: (torch.device("cuda", 0),) * 2)
+    two = SV.MWISService(SV.ServeConfig(backend="cuda", max_batch=8))
+    _same_results(two.solve_batch(reqs), want)
+    assert two.stats["devices"] == 2
+    assert {r["devices"] for r in two._stage_log} == {2}
+    one.close()
+    two.close()
+
+
 def test_kernel_rejects_other_dtypes(cuda):
     perm = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
     lrow = torch.full((1, 8), 8, dtype=torch.int32, device=cuda)

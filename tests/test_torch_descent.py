@@ -495,7 +495,7 @@ def test_cli_descent_auto_prints_reference_lines(capsys):
     args = ["--arch", "mwis", "--requests", "6", "--batch", "4",
             "--repeat-topologies", "2", "--seed", "1", "--descent", "auto",
             "--algo", "greedy"]
-    jlaunch.main([*args, "--no-pipeline"])
+    jlaunch.main(args)
     want = _lines(capsys.readouterr().out)
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", *args,
@@ -510,11 +510,13 @@ def test_cli_descent_auto_prints_reference_lines(capsys):
 
 
 def _lines(text):
-    """The printed lines with the host-clock numbers and the backend /
-    device / pipeline names taken out."""
+    """The printed lines with the host-clock numbers (times and the
+    overlap ratio made of them) and the backend / device / pipeline names
+    taken out."""
     text = re.sub(r"throughput=[0-9.]+", "throughput=T", text)
     text = re.sub(r"p50=[0-9.]+ms p99=[0-9.]+ms", "p50=P p99=P", text)
     text = re.sub(r"(pack|transfer|solve|fetch)=[0-9.]+ms", r"\1=S", text)
+    text = re.sub(r"overlap_ratio=[0-9.]+", "overlap_ratio=R", text)
     text = re.sub(r"backend=\w+", "backend=B", text)
     return [ln for ln in text.splitlines()
             if ln.strip() and not ln.startswith("devices:")]

@@ -1,7 +1,8 @@
 """The port stands alone: importing and running it — the solver, the staged
 solver with its checkpoint and fault harness, the serving layer (with
-descent on), both CLIs and the per-PE path's spawned ranks — loads neither
-JAX nor the reference package,
+descent on, pipelined, and sharded over four CPU devices), both CLIs and
+the per-PE path's spawned ranks — loads neither JAX nor the reference
+package,
 an entry point without ``device=`` refuses to run when no GPU is visible,
 and CPU tensors never count as kernel launches — neither on the solver's
 or the service's path nor through the three kernel ops off it."""
@@ -34,7 +35,7 @@ SCRIPT = textwrap.dedent("""
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.segment_coo.ops import pack_blocks, segment_sum_coo
     from repro_torch.kernels.wedge_intersect.ops import common_neighbor_stats
-    from repro_torch.launch import mwis_run
+    from repro_torch.launch import mesh, mwis_run
     from repro_torch.launch import serve as serve_cli
 
     assert not torch.cuda.is_available()
@@ -93,6 +94,20 @@ SCRIPT = textwrap.dedent("""
     assert all(r.ok for r in res), res
     assert svc.stats["backend_active"] == "cuda"
     assert svc.stats["descent_solves"] == 1
+    reqs = [gen.gnm(30 + s, 60, seed=s) for s in range(4)]
+    piped = SV.MWISService(SV.ServeConfig(backend="cuda", device="cpu",
+                                          max_batch=2))
+    res = piped.solve_batch(reqs)
+    assert piped.stats["pipelined_chunks"] == 2, piped.stats
+    visible = mesh.visible_devices
+    mesh.visible_devices = lambda kind: (torch.device(kind),) * 4
+    sharded = SV.MWISService(SV.ServeConfig(backend="cuda", device="cpu"))
+    mesh.visible_devices = visible
+    for a, b in zip(sharded.solve_batch(reqs), res):
+        assert a.ok and b.ok and np.array_equal(a.members, b.members)
+    assert sharded.stats["devices"] == 4
+    piped.close()
+    sharded.close()
     serve_cli.main(["--device", "cpu", "--requests", "2", "--batch", "2",
                     "--repeat-topologies", "2", "--algo", "greedy"])
     counts = tuple(kernels.launch_count(k) for k in (

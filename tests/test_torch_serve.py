@@ -2,8 +2,9 @@
 ``repro.core.serve`` on the same requests (members and weight identical,
 on both of the port's CPU backends, for greedy / rg / rnp), batched against
 the port's single-instance solve, the plan cache and plan stacking against
-the reference's, bucketing, per-request isolation, the fallback chain, the
-knobs not ported yet, and the ``launch.serve`` CLI."""
+the reference's, bucketing, per-request isolation, the fallback chain and
+the ``launch.serve`` CLI (the pipeline and the serve mesh:
+``test_torch_serve_pipeline.py``)."""
 
 import os
 import re
@@ -338,29 +339,27 @@ def test_service_cache_hits_and_eviction_bound():
 
 
 def test_cells_match_reference():
-    """The reference's cells, field for field, without its multi-device
-    knobs (serve_devices, pipeline), which the port leaves out."""
-    k = len(TSV.ServeCell._fields)
-    assert TSV.ServeCell._fields == JSV.ServeCell._fields[:k]
+    """The reference's cells, field for field, its multi-device knobs
+    (serve_devices, pipeline) included."""
+    assert TSV.ServeCell._fields == JSV.ServeCell._fields
     assert TSV.serve_cells() == tuple(
-        TSV.ServeCell(*c[:k]) for c in JSV.serve_cells())
+        TSV.ServeCell(*c) for c in JSV.serve_cells())
     assert TSV.descent_entry_cells() == tuple(
-        TSV.ServeCell(*c[:k]) for c in JSV.descent_entry_cells())
+        TSV.ServeCell(*c) for c in JSV.descent_entry_cells())
 
 
 @pytest.mark.parametrize("name", ["serve_xs", "serve_s", "serve_m",
                                   "descent_l", "descent_xl"])
 def test_config_rows_match_reference(name):
     """The port's copy of the serve / descent shape rows and helpers is the
-    reference's, less the multi-device keys."""
+    reference's."""
     from repro.configs import base as jbase
     from repro.configs import mwis as jcfg
     from repro_torch.configs import mwis as tcfg
 
-    want = {k: v for k, v in jbase.MWIS_SHAPES[name].items()
-            if k not in ("serve_devices", "pipeline")}
-    assert tcfg.MWIS_SHAPES[name] == want
+    assert tcfg.MWIS_SHAPES[name] == jbase.MWIS_SHAPES[name]
     assert tcfg.rule_schedule(name) == jcfg.rule_schedule(name)
+    assert tcfg.serve_knobs(name) == jcfg.serve_knobs(name)
     assert tcfg.MWIS_SERVE_BATCH_SIZES == jbase.MWIS_SERVE_BATCH_SIZES
     assert tcfg.serve_cell_names() == jcfg.serve_cell_names()
 
@@ -514,16 +513,8 @@ def test_kernel_failure_is_not_hidden(monkeypatch):
 
 
 # --------------------------------------------------------------------- #
-# knobs not ported yet, and the device
+# configuration and statistics
 # --------------------------------------------------------------------- #
-
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(devices=2), "item 4"), (dict(pipeline=True), "item 4"),
-])
-def test_unported_knobs_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _tsvc(**kw)
 
 
 @pytest.mark.parametrize("kw", [dict(algo="reduce"), dict(backend="pallas"),
@@ -535,13 +526,15 @@ def test_bad_config_raises(kw):
 
 
 def test_stage_stats_have_the_reference_keys():
+    """The default service pipelines, as the reference's does."""
     svc = _tsvc(max_batch=2)
     svc.solve_batch(_requests(tgen, [(18, 40), (20, 44), (22, 48)], 1))
     got = svc.stats
-    ref = JSV.MWISService(JSV.ServeConfig(pipeline=False)).stats
+    ref = JSV.MWISService(JSV.ServeConfig()).stats
     assert set(got) == set(ref)
-    assert got["chunks"] == 2 and got["devices"] == 1
-    assert got["pipeline"] is False and got["pipelined_chunks"] == 0
+    assert got["chunks"] == 2 and got["devices"] == 1 == ref["devices"]
+    assert got["pipeline"] is True is ref["pipeline"]
+    assert got["pipelined_chunks"] == 2
     assert got["stage_ms"]["solve"] > 0 and got["wall_ms"] > 0
     assert set(got["stage_p50_ms"]) == {"pack", "transfer", "solve",
                                         "fetch"}
@@ -563,11 +556,13 @@ def test_measure_throughput_counts_instances():
 
 
 def _lines(text):
-    """The printed lines with the host-clock numbers and the backend /
-    device / pipeline names taken out."""
+    """The printed lines with the host-clock numbers (times and the
+    overlap ratio made of them) and the backend / device / pipeline names
+    taken out."""
     text = re.sub(r"throughput=[0-9.]+", "throughput=T", text)
     text = re.sub(r"p50=[0-9.]+ms p99=[0-9.]+ms", "p50=P p99=P", text)
     text = re.sub(r"(pack|transfer|solve|fetch)=[0-9.]+ms", r"\1=S", text)
+    text = re.sub(r"overlap_ratio=[0-9.]+", "overlap_ratio=R", text)
     text = re.sub(r"backend=\w+", "backend=B", text)
     return [ln for ln in text.splitlines()
             if ln.strip() and not ln.startswith("devices:")]
@@ -579,7 +574,7 @@ def test_cli_prints_reference_lines(capsys):
     names and the devices line aside)."""
     args = ["--arch", "mwis", "--requests", "4", "--batch", "4",
             "--repeat-topologies", "2", "--seed", "3"]
-    jlaunch.main([*args, "--no-pipeline"])
+    jlaunch.main(args)
     want = _lines(capsys.readouterr().out)
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", *args,
@@ -587,7 +582,7 @@ def test_cli_prints_reference_lines(capsys):
         env=dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1"),
         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "pipeline=off" in res.stdout
+    assert "devices: 1/1 visible (cpu) pipeline=on" in res.stdout
     got = _lines(res.stdout)
     assert got == want
     assert len(got) == 9
