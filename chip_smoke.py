@@ -111,7 +111,29 @@ continues):
                kernel on rank 0's plan (its row of ``shard_map_arrays``)
                with the first sweep's columns, timed as in phase 6.  Four
                processes share one card and the host, so its seconds are
-               no multi-GPU time.
+               no multi-GPU time;
+ 18. models  — the reference's other serving archs on the card.  First
+               the CLI: ``repro_torch.launch.serve --arch dlrm-mlperf
+               --requests 16`` (26 x 16 ``embedding_bag`` launches) and
+               ``--arch gemma3-1b --tokens 16`` (no kernel), the SMOKE
+               configs.  Then DLRM at the MLPerf widths with every table
+               capped at 10,000,000 rows (a cut of scale: 54,068,224 rows
+               x 128, 27.7 GB, weights from a seeded generator on the
+               card): ``serve_p99`` (B 512, 32 requests), ``serve_bulk``
+               (B 262,144, 3 batches) and ``retrieval_cand`` (1 query x
+               1,000,000 candidates), once through the kernel (26 launches
+               a forward, 1 a retrieval) and once through its plain
+               version on the same card, every output bit for bit equal,
+               one ``serve_bulk`` batch under torch.profiler.  Then
+               gemma3-1b at full width and depth (bfloat16) decoding 32
+               steps for a batch of 16 from ``cache_len`` 32,736 of a
+               32,768-position cache filled from a seeded generator (the
+               stand-in for a prefilled context; ``decode_32k``'s batch of
+               128 is cut to 16), logits finite, the last 4 steps under
+               torch.profiler; then the same widths at 2 layers in float32
+               (batch 2, a 1,024-position cache) on the card and on the
+               CPU from one seed: logits within 1e-4 of the largest,
+               greedy tokens equal.
 
 Phases 4, 7, 12 and 13 reset each op's launch count just before its calls
 and read it just after (it must be > 0), then time the kernel, its plain
@@ -152,6 +174,17 @@ SEGMENT_SUM_SIZE = dict(seeds=1024, fanouts=(15, 10), n_rows=169_984,
                         n_edges=168_960, widths=(602, 128), r_blk=8)
 #: dlrm-mlperf's largest table (src/repro/models/dlrm.py) at ``serve_bulk``.
 EMBEDDING_BAG_SIZE = dict(V=39_979_771, D=128, B=262_144, bags=(1, 4))
+
+#: Phase 18: dlrm-mlperf at its widths with each table capped at this many
+#: rows (so the 26 tables fit one card), and its RECSYS_SHAPES cells
+#: (src/repro/configs/base.py:45-50).
+DLRM_ROW_CAP = 10_000_000
+DLRM_CELLS = dict(serve_p99=(512, 32), serve_bulk=(262_144, 3),
+                  retrieval_cand=1_000_000)
+#: Phase 18: gemma3-1b's decode at a 32k context (``decode_32k``, batch cut
+#: from 128 to 16) and the 2-layer float32 card-against-CPU check.
+LM_DECODE = dict(batch=16, seq=32_768, steps=32, profiled=4)
+LM_CHECK = dict(layers=2, batch=2, seq=1024, start=1016, steps=4)
 
 #: RGG vertices of phase 17's NCCL run (world 1, p = 1).
 DIST_NCCL_N = 1 << 14
@@ -1548,13 +1581,302 @@ def serve_phase(opts) -> dict:
     return kern
 
 
+def plain_lookup(table, idx):
+    """DLRM's lookup through the kernel's plain version (phase 18's second
+    pass, and the reference the kernel pass must equal bit for bit)."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    rows = idx.contiguous()[:, None]
+    return embedding_bag_ref(table, rows, torch.ones(rows.shape,
+                                                     device=rows.device))
+
+
+def cli_models(dev, opts) -> int:
+    """Phase 18, first part: the serving CLI's DLRM and LM archs on the card
+    (SMOKE configs), launch counts reset just before and read just after
+    each; returns the DLRM run's ``embedding_bag`` launches."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import serve as serve_cli
+
+    runs = ((["--arch", "dlrm-mlperf", "--requests", "16"], 26 * 16),
+            (["--arch", "gemma3-1b", "--tokens", "16"], 0))
+    launches = 0
+    for argv, want in runs:
+        args = serve_cli.build_parser().parse_args(
+            [*argv, "--device", dev.type, "--seed", str(opts.seed)])
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        out = (serve_cli.serve_dlrm if args.arch == "dlrm-mlperf"
+               else serve_cli.serve_lm)(args)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        phase("models", f"cli {' '.join(argv)}: launches={counts} "
+                        f"seconds={time.time() - t0:.2f}")
+        if counts != {**{k: 0 for k in counts}, "embedding_bag": want}:
+            fail(f"models: cli {argv[1]} launched {counts}, expected "
+                 f"{want} embedding_bag launches and no other kernel")
+        if args.arch != "dlrm-mlperf" and not bool(
+                torch.isfinite(out["logits"]).all()):
+            fail("models: cli LM logits are not finite")
+        launches += want
+    return launches
+
+
+def dlrm_pass(dev, model, cfg, batches: dict, kernel: bool) -> dict:
+    """One pass of phase 18's DLRM cells: each request from its numpy batch
+    (host to device copy included) to its synchronised output, host
+    clock; launch counts reset before and read after every call (26 a
+    forward through the kernel, 1 a retrieval; none through the plain
+    lookup).  Returns the outputs, the latencies and the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models import dlrm as DM
+
+    per_call = {"serve": cfg.n_sparse, "retrieval": 1}
+    label = "kernel" if kernel else "plain lookup"
+    out = dict(outputs=[], ms={}, launches=0)
+
+    def call(kind, step, b):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        y = step(model, tb, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = launch_counts()
+        want = per_call[kind] if kernel else 0
+        if n != {**{k: 0 for k in n}, "embedding_bag": want}:
+            fail(f"models: dlrm {kind} ({label}) launched {n}, expected "
+                 f"{want} embedding_bag launches")
+        out["launches"] += want
+        out["outputs"].append(y)
+        return ms
+
+    with torch.no_grad():
+        for cell in ("serve_p99", "serve_bulk"):
+            out["ms"][cell] = [call("serve", DM.serve_step, b)
+                               for b in batches[cell]]
+        out["ms"]["retrieval_cand"] = [call(
+            "retrieval", DM.retrieval_step, batches["retrieval_cand"])]
+    p99 = np.asarray(out["ms"]["serve_p99"][1:])
+    phase("models", f"dlrm {label}: serve_p99 B={DLRM_CELLS['serve_p99'][0]} "
+                    f"p50_ms={np.percentile(p99, 50)} "
+                    f"p99_ms={np.percentile(p99, 99)} (first request "
+                    f"{out['ms']['serve_p99'][0]} ms left out); serve_bulk "
+                    f"B={DLRM_CELLS['serve_bulk'][0]} ms="
+                    f"{out['ms']['serve_bulk']}; retrieval_cand "
+                    f"{DLRM_CELLS['retrieval_cand']} candidates ms="
+                    f"{out['ms']['retrieval_cand'][0]}; "
+                    f"embedding_bag launches={out['launches']}")
+    return out
+
+
+def dlrm_at_width(dev, opts) -> int:
+    """Phase 18, second part: dlrm-mlperf at its widths (tables capped at
+    ``DLRM_ROW_CAP`` rows) through the kernel and through the plain lookup,
+    bit for bit; returns the kernel pass's ``embedding_bag`` launches."""
+    import dataclasses
+    import unittest.mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.data.pipeline import DLRMBatchSpec, dlrm_batch
+    from repro_torch.models import common as MC
+    from repro_torch.models import dlrm as DM
+
+    cfg = dataclasses.replace(dlrm_mlperf.CONFIG, vocabs=tuple(
+        min(v, DLRM_ROW_CAP) for v in DM.MLPERF_VOCABS))
+    specs = DM.param_specs(cfg)
+    rows = sum(s.shape[0] for s in specs["tables"].values())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(opts.seed)
+    model = DM.DLRM(cfg, MC.init_params(specs, gen, dev))
+    torch.cuda.synchronize()
+    phase("models", f"dlrm-mlperf widths (embed {cfg.embed_dim}, bot "
+                    f"{cfg.bot_mlp}, top {(cfg.top_in,) + cfg.top_mlp}), "
+                    f"tables capped at {DLRM_ROW_CAP} rows (a cut of "
+                    f"scale): {rows} rows, "
+                    f"{MC.count_params(specs) * 4 / 1e9:.2f} GB float32, "
+                    f"initialised on the card in {time.time() - t0:.2f}s")
+    t0 = time.time()
+    batches = {}
+    for cell in ("serve_p99", "serve_bulk"):
+        b_size, n = DLRM_CELLS[cell]
+        spec = DLRMBatchSpec(b_size, cfg.n_dense, cfg.n_sparse, cfg.vocabs,
+                             seed=opts.seed)
+        batches[cell] = [{k: v for k, v in dlrm_batch(spec, r).items()
+                          if k != "labels"} for r in range(n)]
+    rng = np.random.default_rng(opts.seed)
+    batches["retrieval_cand"] = dict(
+        dense=batches["serve_p99"][0]["dense"][:1],
+        candidates=rng.integers(0, cfg.vocabs[0], size=(
+            1, DLRM_CELLS["retrieval_cand"])).astype(np.int32))
+    phase("models", f"dlrm batches generated on the host in "
+                    f"{time.time() - t0:.2f}s")
+    got = dlrm_pass(dev, model, cfg, batches, kernel=True)
+    with unittest.mock.patch.object(DM, "embedding_bag", plain_lookup):
+        want = dlrm_pass(dev, model, cfg, batches, kernel=False)
+    for i, (g, w) in enumerate(zip(got["outputs"], want["outputs"])):
+        if not torch.equal(g, w):
+            fail(f"models: dlrm output {i} through the kernel != the plain "
+                 f"lookup's (max abs diff {(g - w).abs().max()})")
+        if not bool(torch.isfinite(g).all()):
+            fail(f"models: dlrm output {i} is not finite")
+    phase("models", f"dlrm: all {len(got['outputs'])} outputs (serve_p99, "
+                    f"serve_bulk, retrieval_cand) through the kernel == the "
+                    f"plain lookup, bit for bit")
+    bulk = {k: torch.from_numpy(v).to(dev)
+            for k, v in batches["serve_bulk"][0].items()}
+    with torch.no_grad():
+        device_profile(f"dlrm serve_bulk B={DLRM_CELLS['serve_bulk'][0]} "
+                       f"(kernel)",
+                       lambda: DM.serve_step(model, bulk, cfg))
+    launches = got["launches"]
+    del model, got, want, bulk
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_decode_at_width(dev, opts) -> None:
+    """Phase 18, third part: gemma3-1b at full width and depth decoding
+    against a 32k cache, then the 2-layer float32 card-against-CPU check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.data.pipeline import LMBatchSpec, lm_batch
+    from repro_torch.models import common as MC
+    from repro_torch.models import transformer as TM
+
+    cfg = gemma3_1b.CONFIG
+    B, S, steps = (LM_DECODE[k] for k in ("batch", "seq", "steps"))
+    start = S - steps
+    torch.cuda.synchronize()
+    t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(opts.seed)
+    model = TM.Transformer(cfg, MC.init_params(TM.param_specs(cfg), gen,
+                                               dev))
+    (k_shape, dt), _ = TM.make_kv_cache_specs(cfg, B, S)
+    kc = torch.randn(k_shape, generator=gen, dtype=dt, device=dev)
+    vc = torch.randn(k_shape, generator=gen, dtype=dt, device=dev)
+    torch.cuda.synchronize()
+    cache_gb = 2 * kc.numel() * kc.element_size() / 1e9
+    phase("models", f"gemma3-1b: {cfg.n_layers} layers, d_model "
+                    f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.n_params()} "
+                    f"parameters in bfloat16; cache {B} x {S} positions "
+                    f"({cache_gb:.2f} GB) from a seeded generator; set up "
+                    f"in {time.time() - t0:.2f}s")
+    tok = torch.from_numpy(lm_batch(LMBatchSpec(B, 1, cfg.vocab,
+                                                seed=opts.seed), 0)
+                           ["tokens"]).to(dev)
+    kernels.reset_launch_counts()
+    ms = []
+    timed = steps - LM_DECODE["profiled"]
+    with torch.no_grad():
+        def step(n):
+            nonlocal tok
+            logits, _ = TM.serve_step(model, (kc, vc), tok, n, cfg)
+            if not bool(torch.isfinite(logits).all()):
+                fail(f"models: gemma3-1b logits not finite at step {n}")
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+
+        for n in range(start, start + timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(n)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        device_profile(f"gemma3-1b decode, {LM_DECODE['profiled']} steps "
+                       f"at cache_len {start + timed}",
+                       lambda: [step(n) for n in range(start + timed,
+                                                       start + steps)])
+    if any(launch_counts().values()):
+        fail(f"models: the LM decode launched a kernel: {launch_counts()}")
+    warm = np.asarray(ms[1:])
+    p50 = float(np.percentile(warm, 50))
+    phase("models", f"gemma3-1b decode B={B} cache_len {start}..{S - 1}: "
+                    f"step p50_ms={p50} min_ms={warm.min()} max_ms="
+                    f"{warm.max()} (first step {ms[0]} ms left out), "
+                    f"tok_per_s={B / p50 * 1e3} ({timed} steps timed one "
+                    f"by one, host clock, each synchronised; all "
+                    f"{steps} steps' logits finite)")
+    del model, kc, vc
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, n_layers=LM_CHECK["layers"],
+                                dtype=torch.float32)
+    t0 = time.time()
+    gen = torch.Generator().manual_seed(opts.seed)
+    params = MC.init_params(TM.param_specs(small), gen, "cpu")
+    (k_shape, dt), _ = TM.make_kv_cache_specs(small, LM_CHECK["batch"],
+                                              LM_CHECK["seq"])
+    kc = torch.randn(k_shape, generator=gen, dtype=dt)
+    vc = torch.randn(k_shape, generator=gen, dtype=dt)
+    runs = {"cpu": (TM.Transformer(small, params), kc.clone(), vc.clone()),
+            "card": (TM.Transformer(small, params).to(dev),
+                     kc.to(dev), vc.to(dev))}
+    toks = {d: torch.zeros((LM_CHECK["batch"], 1), dtype=torch.int32,
+                           device=k.device) for d, (_, k, _) in runs.items()}
+    worst = 0.0
+    with torch.no_grad():
+        for n in range(LM_CHECK["start"], LM_CHECK["start"]
+                       + LM_CHECK["steps"]):
+            out = {d: TM.serve_step(m, (k, v), toks[d], n, small)[0]
+                   for d, (m, k, v) in runs.items()}
+            want, got = out["cpu"], out["card"].cpu()
+            rel = float((got - want).abs().max() / want.abs().max())
+            worst = max(worst, rel)
+            if rel > 1e-4 or not torch.equal(got.argmax(-1),
+                                             want.argmax(-1)):
+                fail(f"models: 2-layer float32 decode on the card != CPU at "
+                     f"step {n} (max diff / max logit {rel})")
+            toks = {d: out[d].argmax(-1)[:, None].to(torch.int32)
+                    for d in out}
+    phase("models", f"gemma3-1b widths, {LM_CHECK['layers']} layers, "
+                    f"float32, batch {LM_CHECK['batch']}, cache "
+                    f"{LM_CHECK['seq']}, {LM_CHECK['steps']} steps from "
+                    f"{LM_CHECK['start']}: card == CPU (max diff / max "
+                    f"logit {worst:.3e}, tolerance 1e-4; greedy tokens "
+                    f"equal) in {time.time() - t0:.1f}s")
+
+
+def models_phase(dev, opts) -> int:
+    """Phase 18 (see the module docstring); returns ``embedding_bag``'s
+    launches on its paths."""
+    import torch
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    phase("models", f"device memory allocated at start "
+                    f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    launches = cli_models(dev, opts)
+    launches += dlrm_at_width(dev, opts)
+    lm_decode_at_width(dev, opts)
+    phase("models", f"phase seconds={time.time() - t0:.1f}")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1 << 20,
                     help="RGG vertices of the main-path instance")
     ap.add_argument("--rnp-n", type=int, default=1 << 16,
                     help="RGG vertices of the reduce-and-peel run")
-    ap.add_argument("--dist-rnp-n", type=int, default=1 << 12,
+    ap.add_argument("--dist-rnp-n", type=int, default=1 << 11,
                     help="RGG vertices of phase 17's rnp runs")
     ap.add_argument("--p", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
@@ -1664,6 +1986,7 @@ def main() -> None:
     dk = resume_phase(base, g, pg, staged, opts.reps)
     dk["launches"] = staged["launches"]
     xk = dist_phase(base, g, pg, red_snap, rg_snap, opts)
+    efull["launches"] += models_phase(dev, opts)
 
     kfull.update(launches=launches,
                  max_abs_err=max(err, kfull["max_abs_err"]))

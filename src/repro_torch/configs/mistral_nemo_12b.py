@@ -1,0 +1,24 @@
+"""mistral-nemo-12b — 40L d_model=5120 32H (GQA kv=8, d_head=128)
+d_ff=14336, vocab=131072, dense, 128k ctx.
+[hf:mistralai/Mistral-Nemo-Base-2407; hf]
+
+The port's copy of ``repro/configs/mistral_nemo_12b.py``'s ``CONFIG`` and
+``SMOKE``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.models.transformer import TransformerConfig
+
+CONFIG = TransformerConfig(
+    name="mistral-nemo-12b",
+    n_layers=40, d_model=5120, n_heads=32, n_kv_heads=8, d_head=128,
+    d_ff=14336, vocab=131072, rope_theta=1_000_000.0,
+)
+
+SMOKE = dataclasses.replace(
+    CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
+    d_ff=128, vocab=128,
+)

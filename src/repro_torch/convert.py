@@ -1,11 +1,13 @@
-"""Carry solver state across from the JAX reference.
+"""Carry solver state and model weights across from the JAX reference.
 
-The MWIS system has no weights; its counterpart is the solver state.  These
+The MWIS solver has no weights; its counterpart is the solver state.  These
 functions turn the reference's NamedTuples (``UnionProblem``, ``Aux``,
 ``Halo``, ``SegPlan``, ``RedState``), read field by field as numpy arrays,
 into the port's tensors on a chosen device — so a test can start both
-implementations from one mid-solve state.  Nothing here imports the
-reference: any object with the same field names will do.
+implementations from one mid-solve state.  :func:`params` turns a model's
+parameter tree (nested dicts of arrays) into the port's state dict.
+Nothing here imports the reference: any object with the same field names
+will do.
 """
 
 from __future__ import annotations
@@ -23,6 +25,29 @@ def tensor(a, device: torch.device | str = "cpu") -> torch.Tensor:
     """One array (numpy, or anything ``np.asarray`` reads) → tensor, same
     dtype and shape."""
     return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params(tree, device: torch.device | str = "cpu") -> dict:
+    """A nested dict of arrays (the reference's parameter tree) → a state
+    dict keyed by the tree's paths joined with ``.`` (``attn.wq``), for
+    ``load_state_dict(..., strict=True)``.  bfloat16 arrays (``ml_dtypes``,
+    which ``torch.from_numpy`` refuses) cross as their ``uint16`` bits."""
+    out = {}
+
+    def walk(t, prefix):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+                continue
+            a = np.asarray(v)
+            if a.dtype.name == "bfloat16":
+                out[prefix + k] = torch.from_numpy(
+                    a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+            else:
+                out[prefix + k] = tensor(a, device)
+
+    walk(tree, "")
+    return out
 
 
 def _fields(cls, src, device):

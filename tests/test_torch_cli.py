@@ -12,6 +12,8 @@ import torch
 from repro.launch import mwis_run as jrun
 from repro_torch.launch import mwis_run as trun
 
+from _torch_jax import _release_jax_programs  # noqa: F401
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

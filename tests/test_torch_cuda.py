@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels on the card: each held against its plain
 torch version (the int32 kernels exactly, the float ones at the tolerance
-stated beside them), and the ``cuda`` backend's solve against the CPU run.
+stated beside them), the ``cuda`` backend's solve against the CPU run, and
+the models: DLRM through the ``embedding_bag`` kernel against its plain
+lookup (bit for bit) and LM decode against the CPU run.
 
 Needs a CUDA card (marker ``gpu``); skips on a CPU-only machine.  On the
 card: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py``.
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.configs import dlrm_mlperf, gemma3_1b
 from repro_torch.core import distributed as D
 from repro_torch.core import engine as E
 from repro_torch.core import serve as SV
@@ -30,7 +33,11 @@ from repro_torch.kernels.segment_coo.ops import (
 from repro_torch.kernels.wedge_intersect import kernel as WK
 from repro_torch.kernels.wedge_intersect.ops import common_neighbor_stats
 from repro_torch.kernels.wedge_intersect.ref import common_neighbor_stats_ref
+from repro_torch.data.pipeline import DLRMBatchSpec, dlrm_batch
 from repro_torch.launch import mesh
+from repro_torch.models import common as MC
+from repro_torch.models import dlrm as DM
+from repro_torch.models import transformer as TM
 
 pytestmark = pytest.mark.gpu
 
@@ -798,3 +805,83 @@ def test_new_kernels_reject_other_dtypes(cuda):
                          torch.zeros((2, 2), dtype=torch.int32, device=cuda),
                          torch.zeros((2, 2), dtype=torch.float64,
                                      device=cuda))
+
+
+def _plain_lookup(table, idx):
+    """The DLRM lookup through the kernel's plain version on the card."""
+    rows = idx.contiguous()[:, None]
+    return embedding_bag_ref(table, rows, torch.ones(rows.shape,
+                                                     device=rows.device))
+
+
+@pytest.mark.parametrize("full_widths", [False, True],
+                         ids=["smoke", "full-widths-64-rows"])
+def test_dlrm_through_the_kernel_equals_the_plain_lookup(cuda, monkeypatch,
+                                                         full_widths):
+    """26 launches a forward and 1 a retrieval; every output bit for bit
+    the plain lookup's on the card, and within float32 rounding (rtol
+    1e-5, atol 1e-6) of the CPU run."""
+    cfg = dlrm_mlperf.SMOKE
+    if full_widths:
+        cfg = dataclasses.replace(dlrm_mlperf.CONFIG, vocabs=tuple(
+            min(v, 64) for v in DM.MLPERF_VOCABS))
+    params = MC.init_params(DM.param_specs(cfg),
+                            torch.Generator().manual_seed(0), "cpu")
+    cpu = DM.DLRM(cfg, params)
+    model = DM.DLRM(cfg, params).to(cuda)
+    b = dlrm_batch(DLRMBatchSpec(300, cfg.n_dense, cfg.n_sparse,
+                                 cfg.vocabs), 0)
+    rng = np.random.default_rng(1)
+    q = dict(dense=b["dense"][:1], candidates=rng.integers(
+        0, cfg.vocabs[0], size=(1, 1000)).astype(np.int32))
+
+    def run(device, m):
+        tb = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        tq = {k: torch.from_numpy(v).to(device) for k, v in q.items()}
+        with torch.no_grad():
+            return (DM.forward(m, tb, cfg), DM.serve_step(m, tb, cfg),
+                    DM.loss_fn(m, tb, cfg), DM.retrieval_step(m, tq, cfg))
+
+    before = kernels.launch_count("embedding_bag")
+    got = run(cuda, model)
+    torch.cuda.synchronize()
+    assert kernels.launch_count("embedding_bag") - before == 3 * 26 + 1
+    monkeypatch.setattr(DM, "embedding_bag", _plain_lookup)
+    before = kernels.launch_count("embedding_bag")
+    want = run(cuda, model)
+    torch.cuda.synchronize()
+    assert kernels.launch_count("embedding_bag") == before
+    for g, w, c in zip(got, want, run("cpu", cpu)):
+        assert torch.equal(g, w)
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_lm_decode_on_cuda_matches_cpu(cuda):
+    """gemma3-1b's SMOKE config in float32, 6 steps from a seeded cache:
+    logits within 1e-4 of the largest, greedy tokens equal, no kernel
+    launched (the LM path has none)."""
+    cfg = dataclasses.replace(gemma3_1b.SMOKE, dtype=torch.float32)
+    params = MC.init_params(TM.param_specs(cfg),
+                            torch.Generator().manual_seed(0), "cpu")
+    cpu, card = TM.Transformer(cfg, params), TM.Transformer(cfg, params)
+    card = card.to(cuda)
+    (shape, dt), _ = TM.make_kv_cache_specs(cfg, 2, 16)
+    gen = torch.Generator().manual_seed(1)
+    kc = torch.randn(shape, generator=gen, dtype=dt)
+    vc = torch.randn(shape, generator=gen, dtype=dt)
+    caches = {"cpu": (kc.clone(), vc.clone()),
+              "cuda": (kc.to(cuda), vc.to(cuda))}
+    toks = {d: torch.zeros((2, 1), dtype=torch.int32, device=d)
+            for d in caches}
+    before = sum(kernels.launch_count(k) for k in kernels.KERNELS)
+    with torch.no_grad():
+        for n in range(8, 14):
+            out = {d: TM.serve_step(m, caches[d], toks[d], n, cfg)[0]
+                   for d, m in (("cpu", cpu), ("cuda", card))}
+            want, got = out["cpu"], out["cuda"].cpu()
+            assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+            assert torch.equal(got.argmax(-1), want.argmax(-1))
+            toks = {d: out[d].argmax(-1)[:, None].to(torch.int32)
+                    for d in out}
+    assert sum(kernels.launch_count(k) for k in kernels.KERNELS) == before

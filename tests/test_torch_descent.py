@@ -38,6 +38,8 @@ from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.distributed.fault import InjectedFault
 from repro_torch.graphs import generators as tgen
 
+from _torch_jax import _release_jax_programs  # noqa: F401
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 #: Tiny ladder so descents trigger on test-sized graphs (the reference

@@ -43,6 +43,8 @@ from repro_torch.kernels.segment_coo.ops import pack_blocks_stacked
 from repro_torch.launch import mesh
 from repro_torch.launch import mwis_run
 
+from _torch_jax import _release_jax_programs  # noqa: F401
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 P, N, WINDOW_CAP, HEAVY_K = 4, 400, 8, 6
 #: (n, window_cap, heavy_k, seed) of an instance where the per-PE path's

@@ -19,6 +19,8 @@ from repro_torch.kernels.embedding_bag import kernel as tkernel
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
+from _torch_jax import _release_jax_programs  # noqa: F401
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

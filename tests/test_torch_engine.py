@@ -23,6 +23,8 @@ from repro_torch.core import partition as tpart
 from repro_torch.core import rules as TR
 from repro_torch.graphs import generators as tgen
 
+from _torch_jax import _release_jax_programs  # noqa: F401
+
 PAIRS = [("jnp", "torch"), ("blocked", "blocked"), ("pallas", "cuda")]
 
 GRAPHS = {

@@ -36,6 +36,8 @@ from repro_torch.distributed import fault as TF
 from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.graphs import generators as tgen
 
+from _torch_jax import _release_jax_programs  # noqa: F401
+
 #: uniform shape bucket of the reference's chaos tests
 SMALL_PAD = dict(L=8, G=14, E=220, B=8, S=8)
 

@@ -1,7 +1,8 @@
 """The port stands alone: importing and running it — the solver, the staged
 solver with its checkpoint and fault harness, the serving layer (with
-descent on, pipelined, and sharded over four CPU devices), both CLIs and
-the per-PE path's spawned ranks — loads neither JAX nor the reference
+descent on, pipelined, and sharded over four CPU devices), the DLRM and
+LM models with the data pipeline, both CLIs (every serving arch) and the
+per-PE path's spawned ranks — loads neither JAX nor the reference
 package,
 an entry point without ``device=`` refuses to run when no GPU is visible,
 and CPU tensors never count as kernel launches — neither on the solver's
@@ -31,12 +32,17 @@ SCRIPT = textwrap.dedent("""
     from repro_torch.distributed.fault import (
         FaultPlan, InjectedFault, remesh_plan, run_union_reduction,
     )
+    from repro_torch.configs import dlrm_mlperf, gemma3_1b
+    from repro_torch.data import pipeline as dp
     from repro_torch.graphs import generators as gen
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.segment_coo.ops import pack_blocks, segment_sum_coo
     from repro_torch.kernels.wedge_intersect.ops import common_neighbor_stats
     from repro_torch.launch import mesh, mwis_run
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import common as MC
+    from repro_torch.models import dlrm as DM
+    from repro_torch.models import transformer as TM
 
     assert not torch.cuda.is_available()
     g = gen.rgg2d(200, avg_deg=6, seed=0)
@@ -110,6 +116,26 @@ SCRIPT = textwrap.dedent("""
     sharded.close()
     serve_cli.main(["--device", "cpu", "--requests", "2", "--batch", "2",
                     "--repeat-topologies", "2", "--algo", "greedy"])
+    dcfg = dlrm_mlperf.SMOKE
+    dlrm = DM.DLRM(dcfg, MC.init_params(
+        DM.param_specs(dcfg), torch.Generator().manual_seed(0), "cpu"))
+    b = dp.dlrm_batch(dp.DLRMBatchSpec(4, 13, 26, dcfg.vocabs), 0)
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    with torch.no_grad():
+        assert DM.serve_step(dlrm, tb, dcfg).shape == (4,)
+        assert DM.loss_fn(dlrm, tb, dcfg).isfinite()
+    lcfg = gemma3_1b.SMOKE
+    lm = TM.Transformer(lcfg, MC.init_params(
+        TM.param_specs(lcfg), torch.Generator().manual_seed(0), "cpu"))
+    (shape, dt), _ = TM.make_kv_cache_specs(lcfg, 2, 8)
+    cache = (torch.zeros(shape, dtype=dt), torch.zeros(shape, dtype=dt))
+    tok = dp.lm_batch(dp.LMBatchSpec(2, 1, lcfg.vocab), 0)["tokens"]
+    with torch.no_grad():
+        logits, _ = TM.serve_step(lm, cache, torch.from_numpy(tok), 0, lcfg)
+    assert logits.shape == (2, lcfg.vocab)
+    for arch in serve_cli.ARCHES[1:]:
+        serve_cli.main(["--arch", arch, "--device", "cpu", "--requests",
+                        "2", "--batch", "2", "--tokens", "2"])
     counts = tuple(kernels.launch_count(k) for k in (
         "segment_fused", "segment_sum", "wedge_intersect", "embedding_bag"))
     assert counts == (0, 0, 0, 0), counts
@@ -119,7 +145,9 @@ SCRIPT = textwrap.dedent("""
                  lambda: D.disredu(pg, cfg),
                  lambda: mwis_run.main(["--n", "50", "--p", "2"]),
                  lambda: SV.MWISService(),
-                 lambda: serve_cli.main(["--requests", "2"])):
+                 lambda: serve_cli.main(["--requests", "2"]),
+                 lambda: serve_cli.main(["--arch", "dlrm-mlperf"]),
+                 lambda: serve_cli.main(["--arch", "qwen3-32b"])):
         try:
             call()
         except RuntimeError as e:

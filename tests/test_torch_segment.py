@@ -24,6 +24,8 @@ from repro_torch.kernels.segment_coo.ref import (
     segment_or_ref, segment_sum,
 )
 
+from _torch_jax import _release_jax_programs  # noqa: F401
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

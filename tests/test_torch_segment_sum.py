@@ -27,6 +27,8 @@ from repro_torch.kernels.segment_coo.ref import (
     segment_sum_blocked_ref, segment_sum_ref,
 )
 
+from _torch_jax import _release_jax_programs  # noqa: F401
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

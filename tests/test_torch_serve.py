@@ -33,6 +33,8 @@ from repro_torch.core import validate as TV
 from repro_torch.core.graph import Graph as TGraph
 from repro_torch.graphs import generators as tgen
 
+from _torch_jax import _release_jax_programs  # noqa: F401
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 

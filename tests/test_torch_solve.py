@@ -22,6 +22,8 @@ from repro_torch.core import sequential as tseq
 from repro_torch.core import solvers as TS
 from repro_torch.graphs import generators as tgen
 
+from _torch_jax import _release_jax_programs  # noqa: F401
+
 GRAPHS = {
     "rgg": lambda gen: gen.rgg2d(300, avg_deg=7, seed=1),
     "rhg": lambda gen: gen.rhg_like(300, avg_deg=6, seed=2),

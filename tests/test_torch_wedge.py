@@ -26,6 +26,8 @@ from repro_torch.kernels.wedge_intersect.ref import (
 )
 from tests.test_torch_cuda import layout_windows
 
+from _torch_jax import _release_jax_programs  # noqa: F401
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
