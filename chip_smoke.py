@@ -38,9 +38,10 @@ continues):
                final state, exact against the plain version, timed;
   8. replay  — the host time of the fold-log replay
                (``rules.reconstruct_members``) of the full-size runs;
-  9. rnp     — rnp/edges-only on ``cuda`` at ``--rnp-n`` (its host-driven
-               peel loop does not fit the time limit at full size), then
-               the kernel on its plan, timed as in phase 6;
+  9. rnp     — rnp/edges-only on ``cuda`` at ``--rnp-n`` (default 2^15:
+               its host-driven peel loop does not fit the time limit at
+               full size), then the kernel on its plan, timed as in phase
+               6;
  10. oracle  — greedy on the card equals the sequential priority greedy;
  11. profile — the reduce run again under torch.profiler: device time by
                kernel and by op, and the device's busy share of the wall
@@ -133,7 +134,31 @@ continues):
                torch.profiler; then the same widths at 2 layers in float32
                (batch 2, a 1,024-position cache) on the card and on the
                CPU from one seed: logits within 1e-4 of the largest,
-               greedy tokens equal.
+               greedy tokens equal;
+ 19. train   — LM training (no kernel of the port on this path; none may
+               launch).  First the CLI on the SMOKE configs:
+               ``repro_torch.launch.train --arch gemma3-1b --steps 21
+               --save-every 10``, then the same ``--ckpt`` with ``--steps
+               31`` (it must restore step 20 and run steps 21-30 only),
+               then ``--arch qwen3-moe-235b-a22b --steps 11``, every
+               printed loss finite.  Then gemma3-1b at full width and
+               depth (bfloat16, ~1.00 B parameters) at ``train_4k``'s seq
+               4,096 with the batch cut from 256 to 4: 6 AdamW steps (lr
+               3e-4) on one ``lm_batch``, each loss finite and the last
+               below the first, ms a step (p50 of steps 2-5), tokens a
+               second, peak memory, and one more step under
+               torch.profiler (busy share, device time by op, device ops
+               a step).  Then the same widths at 2 layers in float32 (no
+               TF32), B 1, T 640 (the 512-token window masks):
+               ``loss_fn`` within 1e-5 relative and every weight's
+               gradient within 1e-4 of its largest on the card and on
+               the CPU from one seed.  Then qwen3-moe-235b-a22b at full
+               width cut from 94 to 2 layers (~5.6 B parameters,
+               bfloat16), B 1 at seq 4,096: ``prefill_step``'s logits
+               finite, the share of expert assignments kept at capacity
+               (cap 320), and one Adafactor train step (AdamW's float32
+               moments would not fit beside the weights and grads),
+               finite, its ms and peak memory.
 
 Phases 4, 7, 12 and 13 reset each op's launch count just before its calls
 and read it just after (it must be > 0), then time the kernel, its plain
@@ -185,6 +210,12 @@ DLRM_CELLS = dict(serve_p99=(512, 32), serve_bulk=(262_144, 3),
 #: from 128 to 16) and the 2-layer float32 card-against-CPU check.
 LM_DECODE = dict(batch=16, seq=32_768, steps=32, profiled=4)
 LM_CHECK = dict(layers=2, batch=2, seq=1024, start=1016, steps=4)
+#: Phase 19: gemma3-1b training at ``train_4k``'s seq with the batch cut
+#: from 256 to 4; the 2-layer float32 card-against-CPU check (T 640 so the
+#: 512-token window masks); qwen3-moe at full width cut to 2 layers.
+LM_TRAIN = dict(batch=4, seq=4096, steps=6, lr=3e-4)
+TRAIN_CHECK = dict(layers=2, batch=1, seq=640)
+MOE_TRAIN = dict(layers=2, batch=1, seq=4096)
 
 #: RGG vertices of phase 17's NCCL run (world 1, p = 1).
 DIST_NCCL_N = 1 << 14
@@ -788,27 +819,33 @@ def reduce_problem(args, pg):
     return D.build_union_problem(pg, cfg.backend, cfg.r_blk, args.device), cfg
 
 
-def device_profile(label: str, fn, top: int = 15) -> dict:
-    """Run ``fn`` once under torch.profiler: device time by kernel and by
-    launching op, and the device's busy share of the call's wall time.
-    Returns the aten ops by name."""
+def device_profile(label: str, fn, top: int = 15,
+                   cpu_ops: bool = True) -> dict:
+    """Run ``fn`` once under torch.profiler: device time by kernel and
+    (``cpu_ops``) by launching op, and the device's busy share of the
+    call's wall time.  Returns the aten ops by name (none without
+    ``cpu_ops``: a call of ~10^5 launches has ~10^6 host events, which
+    the profiler takes minutes to sum)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu_ops
+    with profile(activities=acts) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    rows = [e for e in prof.key_averages()
+    t_avg = time.time()
+    avg = prof.key_averages()
+    rows = [e for e in avg
             if getattr(e, "device_time_total", 0) > 0
             and e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in rows)
     phase("profile", f"{label} wall={wall:.3f}s "
                      f"device_busy={busy_us / 1e6:.3f}s "
-                     f"busy_share={busy_us / 1e6 / wall:.4f}")
+                     f"busy_share={busy_us / 1e6 / wall:.4f} "
+                     f"device_ops={sum(e.count for e in rows)}")
     if not rows:
         phase("profile", "the profiler saw no device time: not measured")
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:top]:
@@ -816,12 +853,13 @@ def device_profile(label: str, fn, top: int = 15) -> dict:
                          f"x{e.count:<6d} {e.key[:90]}")
     # the same device time by the torch op that launched it (an op's time
     # includes the ops it calls, so nested rows overlap)
-    ops = [e for e in prof.key_averages()
+    ops = [e for e in avg
            if e.key.startswith("aten::")
            and getattr(e, "device_time_total", 0) > 0]
     for e in sorted(ops, key=lambda e: -e.device_time_total)[:top]:
         phase("profile", f"op {e.device_time_total / 1e3:10.3f} ms "
                          f"x{e.count:<6d} {e.key}")
+    phase("profile", f"trace summed in {time.time() - t_avg:.1f}s")
     return {e.key: e for e in ops}
 
 
@@ -1870,11 +1908,275 @@ def models_phase(dev, opts) -> int:
     return launches
 
 
+def train_cli(dev, opts) -> None:
+    """Phase 19, first part: ``launch.train`` on the SMOKE configs.
+    gemma3-1b for 21 steps saving every 10, then the same checkpoint for
+    31 (it must restore step 20 and run steps 21-30 only), then
+    qwen3-moe-235b-a22b for 11; every printed loss finite."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train as train_cli
+
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = (("gemma3-1b", 21, [0, 10, 20], []),
+            ("gemma3-1b", 31, [30], [("restored", 20)]),
+            ("qwen3-moe-235b-a22b", 11, [0, 10], []))
+    for arch, steps, printed, restored in runs:
+        if arch != "gemma3-1b":
+            shutil.rmtree(ckpt, ignore_errors=True)
+        t0 = time.time()
+        out = train_cli.main(["--arch", arch, "--steps", str(steps),
+                              "--save-every", "10", "--device", dev.type,
+                              "--seed", str(opts.seed), "--ckpt", str(ckpt)])
+        torch.cuda.synchronize()
+        got = [e for e in out["events"] if e[0] == "restored"]
+        phase("train", f"cli --arch {arch} --steps {steps}: losses="
+                       f"{out['losses']} events={out['events']} "
+                       f"seconds={time.time() - t0:.2f}")
+        if sorted(out["losses"]) != printed or got != restored:
+            fail(f"train: cli {arch} --steps {steps} printed steps "
+                 f"{sorted(out['losses'])} with {got}, expected {printed} "
+                 f"with {restored}")
+        if not all(np.isfinite(v) for v in out["losses"].values()):
+            fail(f"train: cli {arch} printed a loss that is not finite")
+        if int(out["state"]["opt"].step) != steps:
+            fail(f"train: cli {arch} ended at optimizer step "
+                 f"{int(out['state']['opt'].step)}, not {steps}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def lm_train_at_width(dev, opts) -> None:
+    """Phase 19, second part: gemma3-1b at full width and depth (bfloat16)
+    taking AdamW steps at ``train_4k``'s seq on one ``lm_batch``, timed
+    step by step, one more step under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.data.pipeline import LMBatchSpec, lm_batch
+    from repro_torch.models import common as MC
+    from repro_torch.models import transformer as TM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import lm_train_step
+
+    cfg = gemma3_1b.CONFIG
+    B, T = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(opts.seed)
+    params = MC.init_params(TM.param_specs(cfg), gen, dev)
+    ostate = opt.adamw_init(params)
+    ocfg = opt.AdamWConfig(lr=LM_TRAIN["lr"])
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in lm_batch(
+        LMBatchSpec(B, T, cfg.vocab, seed=opts.seed), 0).items()}
+    torch.cuda.synchronize()
+    n = cfg.n_params()
+    gb = 1e9
+    phase("train", f"gemma3-1b: {cfg.n_layers} layers, d_model "
+                   f"{cfg.d_model}, vocab {cfg.vocab}, {n} parameters in "
+                   f"bfloat16, B={B} T={T} (train_4k's seq; batch cut from "
+                   f"256), attn_chunk {cfg.attn_chunk}, loss_chunks "
+                   f"{cfg.loss_chunks}, remat {cfg.remat}; set up in "
+                   f"{time.time() - t0:.2f}s; from the code: weights "
+                   f"{2 * n / gb:.2f} GB + grads {2 * n / gb:.2f} GB + "
+                   f"AdamW moments {8 * n / gb:.2f} GB, a loss chunk's "
+                   f"float32 logits "
+                   f"{B * T // cfg.loss_chunks * cfg.vocab * 4 / gb:.2f} "
+                   f"GB, a layer's remat residual "
+                   f"{B * T * cfg.d_model * 2 / gb:.3f} GB")
+    kernels_before = sum(launch_counts().values())
+    losses, ms = [], []
+    state = (params, ostate)
+    for i in range(LM_TRAIN["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, p2, o2 = lm_train_step(*state, batch, cfg, opt.adamw_update,
+                                     ocfg)
+        state = (p2, o2)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(losses[-1]):
+            fail(f"train: gemma3-1b loss at step {i} is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    if not losses[-1] < losses[0]:
+        fail(f"train: gemma3-1b loss did not fall: {losses}")
+    p50 = float(np.percentile(ms[1:5], 50))
+    phase("train", f"gemma3-1b train B={B} T={T}: losses={losses}; step "
+                   f"ms={ms}; p50_ms (steps 2-5)={p50} tok_per_s="
+                   f"{B * T / p50 * 1e3} max_memory_allocated="
+                   f"{peak / gb:.2f} GB (host clock, each step "
+                   f"synchronised)")
+
+    def one():
+        nonlocal state
+        _, p2, o2 = lm_train_step(*state, batch, cfg, opt.adamw_update, ocfg)
+        state = (p2, o2)
+
+    device_profile(f"gemma3-1b train step B={B} T={T}", one, top=15,
+                   cpu_ops=False)
+    if sum(launch_counts().values()) != kernels_before:
+        fail(f"train: the LM training path launched a kernel of the port: "
+             f"{launch_counts()}")
+    del state, params, ostate, batch
+    torch.cuda.empty_cache()
+
+
+def _named_grads(model) -> dict:
+    return {k: p.grad for k, p in model.named_parameters()}
+
+
+def train_card_vs_cpu(dev, opts) -> None:
+    """Phase 19, third part: gemma3-1b's widths at 2 layers in float32 (no
+    TF32), B 1, T 640 so the 512-token window masks: ``loss_fn`` and every
+    weight's gradient on the card and on the CPU from one seed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.data.pipeline import LMBatchSpec, lm_batch
+    from repro_torch.models import common as MC
+    from repro_torch.models import transformer as TM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(gemma3_1b.CONFIG, n_layers=TRAIN_CHECK["layers"],
+                              dtype=torch.float32)
+    t0 = time.time()
+    params = MC.init_params(TM.param_specs(cfg),
+                            torch.Generator().manual_seed(opts.seed), "cpu")
+    b = lm_batch(LMBatchSpec(TRAIN_CHECK["batch"], TRAIN_CHECK["seq"],
+                             cfg.vocab, seed=opts.seed), 0)
+    res = {}
+    for where in ("cpu", dev):
+        tree = MC.nest({k: t.to(where) for k, t in MC._leaves(params)})
+        model = TM.Transformer(cfg, tree, trainable=True)
+        loss = TM.loss_fn(model, {k: torch.from_numpy(v).to(where)
+                                  for k, v in b.items()}, cfg)
+        loss.backward()
+        res[str(where)] = (float(loss.detach()), {k: g.cpu() for k, g in
+                                         _named_grads(model).items()})
+        del model, tree
+    (lc, gc), (lg, gg) = res["cpu"], res[str(dev)]
+    rel = abs(lg - lc) / abs(lc)
+    worst = max((float((gg[k] - w).abs().max() / w.abs().max()), k)
+                for k, w in gc.items())
+    phase("train", f"gemma3-1b widths, {cfg.n_layers} layers, float32, "
+                   f"B={TRAIN_CHECK['batch']} T={TRAIN_CHECK['seq']}: loss "
+                   f"card {lg} cpu {lc} (rel {rel:.3e}, tolerance 1e-5); "
+                   f"worst gradient {worst[1]} {worst[0]:.3e} of its "
+                   f"largest (tolerance 1e-4) in {time.time() - t0:.1f}s")
+    if rel > 1e-5 or worst[0] > 1e-4:
+        fail("train: the float32 loss or gradients on the card != CPU")
+    torch.cuda.empty_cache()
+
+
+def moe_at_width(dev, opts) -> None:
+    """Phase 19, fourth part: qwen3-moe-235b-a22b at full width cut to 2
+    layers (bfloat16), B 1 at ``train_4k``'s seq: ``prefill_step``'s
+    logits finite, the share of expert assignments kept at capacity, and
+    one train step with Adafactor."""
+    import dataclasses
+    import unittest.mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import qwen3_moe_235b
+    from repro_torch.data.pipeline import LMBatchSpec, lm_batch
+    from repro_torch.models import common as MC
+    from repro_torch.models import transformer as TM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import lm_train_step
+
+    cfg = dataclasses.replace(qwen3_moe_235b.CONFIG,
+                              n_layers=MOE_TRAIN["layers"])
+    B, T = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(opts.seed)
+    params = MC.init_params(TM.param_specs(cfg), gen, dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in lm_batch(
+        LMBatchSpec(B, T, cfg.vocab, seed=opts.seed), 0).items()}
+    torch.cuda.synchronize()
+    phase("train", f"qwen3-moe-235b-a22b widths, {cfg.n_layers} of 94 "
+                   f"layers: {cfg.n_params()} parameters "
+                   f"({2 * cfg.n_params() / 1e9:.2f} GB bfloat16), "
+                   f"{cfg.moe_experts} experts top-{cfg.moe_top_k}, B={B} "
+                   f"T={T}; set up in {time.time() - t0:.2f}s")
+    kept = []
+    dispatch = TM._dispatch
+
+    def counting(flat_e, E, cap):
+        keep, slot = dispatch(flat_e, E, cap)
+        kept.append((int(keep.sum()), keep.numel(), cap))
+        return keep, slot
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), unittest.mock.patch.object(TM, "_dispatch",
+                                                     counting):
+        logits = TM.prefill_step(TM.Transformer(cfg, params),
+                                 batch["tokens"], cfg)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(logits).all()):
+        fail("train: qwen3-moe prefill logits are not finite")
+    share = sum(k for k, _, _ in kept) / sum(n for _, n, _ in kept)
+    phase("train", f"qwen3-moe prefill B={B} T={T}: logits finite "
+                   f"{tuple(logits.shape)}, {pre_ms:.1f} ms (first call); "
+                   f"assignments kept at capacity by layer (kept, of, cap): "
+                   f"{kept}, share {share:.4f}")
+    ostate = opt.adafactor_init(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, p2, _ = lm_train_step(params, ostate, batch, cfg,
+                                opt.adafactor_update, opt.AdafactorConfig())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not np.isfinite(float(loss)) or not all(
+            bool(torch.isfinite(x).all()) for x in opt.leaves(p2)):
+        fail("train: qwen3-moe train step gave a loss or weights that are "
+             "not finite")
+    phase("train", f"qwen3-moe Adafactor train step B={B} T={T}: loss="
+                   f"{float(loss)} {ms:.1f} ms (one step, host clock, "
+                   f"synchronised) max_memory_allocated="
+                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params, p2, ostate, logits, batch
+    torch.cuda.empty_cache()
+
+
+def train_phase(dev, opts) -> None:
+    """Phase 19 (see the module docstring)."""
+    import torch
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    kernels_before = sum(launch_counts().values())
+    parts = []
+    for part in (train_cli, lm_train_at_width, train_card_vs_cpu,
+                 moe_at_width):
+        t = time.time()
+        part(dev, opts)
+        parts.append(f"{part.__name__} {time.time() - t:.1f}s")
+    if sum(launch_counts().values()) != kernels_before:
+        fail(f"train: the training path launched a kernel of the port: "
+             f"{launch_counts()}")
+    phase("train", f"phase seconds={time.time() - t0:.1f} "
+                   f"({', '.join(parts)})")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1 << 20,
                     help="RGG vertices of the main-path instance")
-    ap.add_argument("--rnp-n", type=int, default=1 << 16,
+    ap.add_argument("--rnp-n", type=int, default=1 << 15,
                     help="RGG vertices of the reduce-and-peel run")
     ap.add_argument("--dist-rnp-n", type=int, default=1 << 11,
                     help="RGG vertices of phase 17's rnp runs")
@@ -1987,6 +2289,7 @@ def main() -> None:
     dk["launches"] = staged["launches"]
     xk = dist_phase(base, g, pg, red_snap, rg_snap, opts)
     efull["launches"] += models_phase(dev, opts)
+    train_phase(dev, opts)
 
     kfull.update(launches=launches,
                  max_abs_err=max(err, kfull["max_abs_err"]))

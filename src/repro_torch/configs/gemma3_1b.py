@@ -17,10 +17,11 @@ CONFIG = TransformerConfig(
     name="gemma3-1b",
     n_layers=26, d_model=1152, n_heads=4, n_kv_heads=1, d_head=256,
     d_ff=6912, vocab=262144, local_window=512, global_every=6,
-    rope_theta=1_000_000.0,
+    rope_theta=1_000_000.0, attn_chunk=512,
 )
 
 SMOKE = dataclasses.replace(
     CONFIG, n_layers=6, d_model=64, n_heads=4, n_kv_heads=1, d_head=16,
-    d_ff=128, vocab=128, local_window=8, global_every=3,
+    d_ff=128, vocab=128, local_window=8, global_every=3, attn_chunk=16,
+    loss_chunks=2,
 )

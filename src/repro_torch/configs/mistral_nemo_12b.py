@@ -15,10 +15,10 @@ from repro_torch.models.transformer import TransformerConfig
 CONFIG = TransformerConfig(
     name="mistral-nemo-12b",
     n_layers=40, d_model=5120, n_heads=32, n_kv_heads=8, d_head=128,
-    d_ff=14336, vocab=131072, rope_theta=1_000_000.0,
+    d_ff=14336, vocab=131072, rope_theta=1_000_000.0, attn_chunk=512,
 )
 
 SMOKE = dataclasses.replace(
     CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
-    d_ff=128, vocab=128,
+    d_ff=128, vocab=128, attn_chunk=32, loss_chunks=2,
 )

@@ -15,9 +15,10 @@ CONFIG = TransformerConfig(
     name="qwen3-32b",
     n_layers=64, d_model=5120, n_heads=64, n_kv_heads=8, d_head=128,
     d_ff=25600, vocab=151936, qk_norm=True, rope_theta=1_000_000.0,
+    attn_chunk=512,
 )
 
 SMOKE = dataclasses.replace(
     CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
-    d_ff=128, vocab=128,
+    d_ff=128, vocab=128, attn_chunk=32, loss_chunks=2,
 )

@@ -5,7 +5,8 @@ functions turn the reference's NamedTuples (``UnionProblem``, ``Aux``,
 ``Halo``, ``SegPlan``, ``RedState``), read field by field as numpy arrays,
 into the port's tensors on a chosen device — so a test can start both
 implementations from one mid-solve state.  :func:`params` turns a model's
-parameter tree (nested dicts of arrays) into the port's state dict.
+parameter tree (nested dicts of arrays) into the port's state dict, and
+:func:`opt_state` an optimizer state into the port's.
 Nothing here imports the reference: any object with the same field names
 will do.
 """
@@ -48,6 +49,20 @@ def params(tree, device: torch.device | str = "cpu") -> dict:
 
     walk(tree, "")
     return out
+
+
+def opt_state(src, device: torch.device | str = "cpu"):
+    """The reference's ``AdamWState`` / ``AdafactorState`` (told apart by
+    their fields) → the port's: each moment tree through :func:`params`
+    and nested again, the step an int32 scalar tensor."""
+    from repro_torch.models.common import nest
+    from repro_torch.train import optimizer as opt
+
+    cls = opt.AdamWState if hasattr(src, "mu") else opt.AdafactorState
+    step = torch.tensor(int(np.asarray(src.step)), dtype=torch.int32,
+                        device=device)
+    return cls(step, *(nest(params(getattr(src, f), device))
+                       for f in cls._fields[1:]))
 
 
 def _fields(cls, src, device):

@@ -19,8 +19,14 @@ Fault-tolerance properties:
     only the disk write runs on a background thread, so the caller may
     go on updating its tensors in place (``wait()`` joins before the next
     save),
-  * device restore — leaves are saved as plain arrays; ``restore(...,
-    device=)`` puts them on any torch device (``device=None``: numpy).
+  * device restore — leaves are saved as plain arrays; ``restore``
+    gives a tensor where the template has one (on ``device=`` when given,
+    else on the template leaf's device, in its dtype) and a numpy array
+    where the template has an array,
+  * bfloat16 — a bfloat16 tensor (every LM weight) is saved as its
+    ``uint16`` bits, ``"dtype": "bfloat16"`` in the manifest and the hash
+    over those bits, and comes back as a bfloat16 tensor (numpy has no
+    bfloat16 without ``ml_dtypes``).
 
 A tree is a nest of dicts, lists/tuples and NamedTuples over tensors or
 arrays; NamedTuple leaves are keyed by field name, so a restored
@@ -34,7 +40,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,12 +65,37 @@ def _leaf_paths(tree: Any, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def _host_copy(leaf: Any) -> np.ndarray:
-    """A host array the caller can no longer change: a tensor is copied off
-    its device (or, on the CPU, cloned), an array copied."""
+_BF16 = "bfloat16"
+
+
+def _host_copy(leaf: Any) -> Tuple[np.ndarray, str]:
+    """(a host array the caller can no longer change, its manifest dtype):
+    a tensor is copied off its device (or, on the CPU, cloned), a bfloat16
+    one as its ``uint16`` bits; an array is copied."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
-    return np.array(leaf, copy=True)
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), _BF16
+        arr = t.numpy()
+    else:
+        arr = np.array(leaf, copy=True)
+    return arr, str(arr.dtype)
+
+
+def _from_host(arr: np.ndarray, dtype: str, like: Any,
+               device: torch.device | str | None) -> Any:
+    """A restored leaf in the template leaf's kind: a tensor (on
+    ``device``, else on ``like``'s device, in ``like``'s dtype) where
+    ``like`` is a tensor, else the array (bfloat16 as its ``uint16``
+    bits)."""
+    if not isinstance(like, torch.Tensor):
+        return arr
+    if dtype == _BF16:
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device if device is not None else like.device,
+                dtype=like.dtype)
 
 
 class CheckpointManager:
@@ -89,13 +120,13 @@ class CheckpointManager:
             manifest = {
                 "step": step, "extra": extra or {}, "leaves": {},
             }
-            for k, arr in host.items():
+            for k, (arr, dtype) in host.items():
                 fn = k.replace("/", "_") + ".npy"
                 np.save(os.path.join(tmp, fn), arr)
                 manifest["leaves"][k] = {
                     "file": fn,
                     "shape": list(arr.shape),
-                    "dtype": str(arr.dtype),
+                    "dtype": dtype,
                     "sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
                 }
             with open(os.path.join(tmp, _MANIFEST), "w") as f:
@@ -159,22 +190,22 @@ class CheckpointManager:
         self, template: Any, step: Optional[int] = None, *,
         device: torch.device | str | None = None, verify: bool = True,
     ) -> Any:
-        """Restore into the structure of `template`: numpy leaves, or
-        tensors on ``device`` when one is given."""
+        """Restore into the structure of `template`: a tensor where the
+        template leaf is a tensor (on ``device`` when one is given, else on
+        that leaf's device; in its dtype), a numpy array where it is an
+        array."""
         d = self._step_dir(step)
         with open(os.path.join(d, _MANIFEST)) as f:
             manifest = json.load(f)
         out: Dict[str, Any] = {}
-        for k in _leaf_paths(template):
+        for k, like in _leaf_paths(template).items():
             meta = manifest["leaves"][k]
             arr = np.load(os.path.join(d, meta["file"]))
             if verify:
                 h = hashlib.sha256(arr.tobytes()).hexdigest()
                 if h != meta["sha256"]:
                     raise IOError(f"checkpoint leaf {k} failed integrity check")
-            if device is not None:
-                arr = torch.from_numpy(arr).to(device)
-            out[k] = arr
+            out[k] = _from_host(arr, meta["dtype"], like, device)
         return _unflatten_like(template, out)
 
 

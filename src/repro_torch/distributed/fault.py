@@ -1,17 +1,20 @@
-"""Fault tolerance for the MWIS reduction: fault injection, restart,
-elastic re-partitioning.
+"""Fault tolerance: the training supervisor, and for the MWIS reduction
+fault injection, restart and elastic re-partitioning.
 
-Port of the MWIS half of :mod:`repro.distributed.fault` (its training
-half, ``StragglerMonitor`` / ``TrainSupervisor``, waits for the train
-path; ROADMAP Queue 1 item 5).
+Port of :mod:`repro.distributed.fault`.
 
-  * **Node loss** — the reduction state (w, status, fold log, offset) *is*
-    the checkpoint: rounds are idempotent from any consistent state, so
-    restart = reload + continue (:class:`~repro_torch.distributed.
-    checkpoint.CheckpointManager`).
+  * **Node loss** — training: checkpoint/restart is the recovery
+    primitive; :class:`TrainSupervisor` wraps the step loop with save
+    cadence + restore-on-restart + deterministic data-skip so restarts
+    replay no batch twice.  MWIS: the reduction state (w, status, fold
+    log, offset) *is* the checkpoint: rounds are idempotent from any
+    consistent state, so restart = reload + continue
+    (:class:`~repro_torch.distributed.checkpoint.CheckpointManager`).
   * **Stragglers** — DisReduA's bounded-staleness exchange already removes
     the per-round straggler barrier (a slow PE delays neighbors by at most
-    one halo exchange, not the whole fixpoint).
+    one halo exchange, not the whole fixpoint).  For training, the
+    supervisor keeps a rolling step-time EWMA and flags outliers
+    (:class:`StragglerMonitor`).
   * **Elastic scaling** — :func:`remesh_plan` recomputes the vertex
     partition for a new p and maps old→new PE state.
   * **Chaos engineering** — :class:`FaultPlan` + :func:`run_union_reduction`
@@ -31,7 +34,8 @@ path; ROADMAP Queue 1 item 5).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +44,64 @@ from repro_torch.core import exchange as X
 from repro_torch.core import rules as R
 from repro_torch.core.local_reduce import local_reduce
 from repro_torch.distributed.checkpoint import CheckpointManager
+
+
+@dataclasses.dataclass
+class StragglerMonitor:
+    """Rolling EWMA of step times; flags steps slower than factor×EWMA."""
+
+    alpha: float = 0.1
+    factor: float = 2.0
+    ewma: Optional[float] = None
+    flagged: int = 0
+
+    def observe(self, dt: float) -> bool:
+        slow = self.ewma is not None and dt > self.factor * self.ewma
+        self.ewma = dt if self.ewma is None else (
+            (1 - self.alpha) * self.ewma + self.alpha * dt
+        )
+        if slow:
+            self.flagged += 1
+        return slow
+
+
+class TrainSupervisor:
+    """Checkpoint-cadenced, restart-safe runner of a training step loop.
+
+    The data pipeline must be indexable by step (deterministic): on restore
+    the loop resumes at ``resume_step()`` without replaying batches.  The
+    state is restored into the template's structure, onto its leaves'
+    devices and dtypes (``CheckpointManager.restore``).
+    """
+
+    def __init__(self, ckpt: CheckpointManager, *, save_every: int = 100,
+                 straggler: Optional[StragglerMonitor] = None):
+        self.ckpt = ckpt
+        self.save_every = save_every
+        self.straggler = straggler or StragglerMonitor()
+        self.events: list = []
+
+    def resume_step(self) -> int:
+        latest = self.ckpt.latest_step()
+        return 0 if latest is None else latest + 1
+
+    def run(self, state: Any, step_fn: Callable[[Any, int], Any],
+            n_steps: int, *, state_template: Optional[Any] = None) -> Any:
+        start = self.resume_step()
+        if start > 0:
+            state = self.ckpt.restore(
+                state_template if state_template is not None else state)
+            self.events.append(("restored", start - 1))
+        for step in range(start, n_steps):
+            t0 = time.monotonic()
+            state = step_fn(state, step)
+            dt = time.monotonic() - t0
+            if self.straggler.observe(dt):
+                self.events.append(("straggler", step, dt))
+            if (step + 1) % self.save_every == 0 or step == n_steps - 1:
+                self.ckpt.save(step, state)
+        self.ckpt.wait()
+        return state
 
 
 class InjectedFault(RuntimeError):

@@ -4,8 +4,10 @@
 // TPU kernel behind embedding_bag.  Same function:
 //     out[b, :] = sum_k wgt[b, k] * table[idx[b, k], :]
 // accumulated in float32, k = 0 .. K-1 in order, and written in the table's
-// type (one rounding).  Indices are taken to be in range: the kernel does
-// not clamp (as JAX's gather does) or raise (as torch's does).
+// type (one rounding).  An index is read as the reference's table[idx] reads
+// it: a negative one wraps once (+ V), then it is clamped into [0, V - 1],
+// in registers, one wrap and one clamp a lookup; no index reads outside the
+// table.
 //
 // Layout: a table row is read as 16-byte vectors (one element when the row
 // or the table is not 16-byte aligned), neighbouring lanes on neighbouring
@@ -21,6 +23,9 @@
 //     shuffle is needed;
 //   wide (n_vec > 16, e.g. float32 at D = 128): one warp per bag, lanes
 //     walking the row's vectors with stride 32.
+//
+// A lookup's liveness (bag and k in range) is kept apart from its index, so
+// every index, -1 included, is a row.
 //
 // Bound: bytes.  Each lookup must read one table row (D x 2 or 4 bytes)
 // and the bag's idx and wgt, and each bag writes one row; there are two
@@ -47,6 +52,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
+// The reference's table[idx]: wrap a negative index once, then clamp.
+__device__ __forceinline__ long long table_row(int i, int v) {
+  const int w = i < 0 ? i + v : i;
+  return (long long)min(max(w, 0), v - 1);
+}
+
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
@@ -67,7 +78,7 @@ template <typename T, int VEC, int BAGS, int UNROLL>
 __global__ void __launch_bounds__(kWarps * 32) embedding_bag_narrow(
     const T* __restrict__ table, const int* __restrict__ idx,
     const float* __restrict__ wgt, T* __restrict__ out, int n_bags,
-    int k_bag, int n_vec) {
+    int k_bag, int n_vec, int n_rows) {
   const int lane = threadIdx.x & 31;
   const int groups = 32 / n_vec;  // lane groups a warp
   const int g = lane / n_vec;
@@ -83,28 +94,30 @@ __global__ void __launch_bounds__(kWarps * 32) embedding_bag_narrow(
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[j][i] = 0.f;
   for (int k0 = 0; k0 < k_bag; k0 += UNROLL) {
-    int row[BAGS][UNROLL];
+    long long row[BAGS][UNROLL];
     float w[BAGS][UNROLL];
+    bool live[BAGS][UNROLL];
 #pragma unroll
     for (int j = 0; j < BAGS; ++j)
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const long long b = first + j;
-        const bool live = b < n_bags && k0 + u < k_bag;
-        row[j][u] = live ? idx[b * k_bag + k0 + u] : -1;
-        w[j][u] = live ? wgt[b * k_bag + k0 + u] : 0.f;
+        live[j][u] = b < n_bags && k0 + u < k_bag;
+        row[j][u] = live[j][u]
+            ? table_row(idx[b * k_bag + k0 + u], n_rows) : 0;
+        w[j][u] = live[j][u] ? wgt[b * k_bag + k0 + u] : 0.f;
       }
     Vec<T, VEC> x[BAGS][UNROLL];
 #pragma unroll
     for (int j = 0; j < BAGS; ++j)
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u)
-        if (row[j][u] >= 0) x[j][u] = rows[(long long)row[j][u] * n_vec + c];
+        if (live[j][u]) x[j][u] = rows[row[j][u] * n_vec + c];
 #pragma unroll
     for (int j = 0; j < BAGS; ++j)
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u)
-        if (row[j][u] >= 0) {
+        if (live[j][u]) {
 #pragma unroll
           for (int i = 0; i < VEC; ++i)
             acc[j][i] += w[j][u] * to_f32(x[j][u].v[i]);
@@ -126,7 +139,7 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(kWarps * 32) embedding_bag_wide(
     const T* __restrict__ table, const int* __restrict__ idx,
     const float* __restrict__ wgt, T* __restrict__ out, int n_bags,
-    int k_bag, int n_vec) {
+    int k_bag, int n_vec, int n_rows) {
   const int lane = threadIdx.x & 31;
   const long long b = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (b >= n_bags) return;  // the whole warp: b is the same for its lanes
@@ -140,7 +153,7 @@ __global__ void __launch_bounds__(kWarps * 32) embedding_bag_wide(
     for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
 #pragma unroll 4
     for (int k = 0; k < k_bag; ++k) {
-      const Vec<T, VEC> x = rows[(long long)bag_idx[k] * n_vec + c];
+      const Vec<T, VEC> x = rows[table_row(bag_idx[k], n_rows) * n_vec + c];
       const float w = bag_wgt[k];
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[i] += w * to_f32(x.v[i]);
@@ -154,7 +167,7 @@ __global__ void __launch_bounds__(kWarps * 32) embedding_bag_wide(
 
 template <typename T, int VEC>
 int launch(const void* table, const void* idx, const void* wgt, void* out,
-           int n_bags, int k_bag, int d, cudaStream_t stream) {
+           int n_bags, int k_bag, int d, int n_rows, cudaStream_t stream) {
   const int n_vec = d / VEC;  // vectors per row
   if (n_vec <= 16) {
     // single-hot bags load no lookup ahead (the registers of kUnroll rows
@@ -166,17 +179,17 @@ int launch(const void* table, const void* idx, const void* wgt, void* out,
       embedding_bag_narrow<T, VEC, kSingleHotBags, 1>
           <<<blocks, kWarps * 32, 0, stream>>>(
               (const T*)table, (const int*)idx, (const float*)wgt, (T*)out,
-              n_bags, k_bag, n_vec);
+              n_bags, k_bag, n_vec, n_rows);
     else
       embedding_bag_narrow<T, VEC, kBagsPerGroup, kUnroll>
           <<<blocks, kWarps * 32, 0, stream>>>(
               (const T*)table, (const int*)idx, (const float*)wgt, (T*)out,
-              n_bags, k_bag, n_vec);
+              n_bags, k_bag, n_vec, n_rows);
   } else {
     const int blocks = (n_bags + kWarps - 1) / kWarps;
     embedding_bag_wide<T, VEC><<<blocks, kWarps * 32, 0, stream>>>(
         (const T*)table, (const int*)idx, (const float*)wgt, (T*)out, n_bags,
-        k_bag, n_vec);
+        k_bag, n_vec, n_rows);
   }
   return (int)cudaGetLastError();
 }
@@ -186,17 +199,22 @@ int launch(const void* table, const void* idx, const void* wgt, void* out,
 // Launch on `stream` without synchronising; returns cudaGetLastError().
 // dtype: 0 = float32, 1 = bfloat16 (table and out).  vec16: rows move as
 // 16-byte vectors (d x element size a multiple of 16, table 16-byte
-// aligned); otherwise one element at a time.  n_bags >= 1, k_bag >= 1.
+// aligned); otherwise one element at a time.  n_bags >= 1, k_bag >= 1,
+// n_rows (the table's V) >= 1.
 extern "C" int embedding_bag_launch(
     const void* table, const void* idx, const void* wgt, void* out,
-    int n_bags, int k_bag, int d, int dtype, int vec16, void* stream) {
+    int n_bags, int k_bag, int d, int n_rows, int dtype, int vec16,
+    void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  const int v = n_rows;
+  using bf16 = __nv_bfloat16;
   if (dtype == 0)
-    return vec16 ? launch<float, 4>(table, idx, wgt, out, n_bags, k_bag, d, s)
-                 : launch<float, 1>(table, idx, wgt, out, n_bags, k_bag, d, s);
+    return vec16
+        ? launch<float, 4>(table, idx, wgt, out, n_bags, k_bag, d, v, s)
+        : launch<float, 1>(table, idx, wgt, out, n_bags, k_bag, d, v, s);
   if (dtype == 1)
     return vec16
-        ? launch<__nv_bfloat16, 8>(table, idx, wgt, out, n_bags, k_bag, d, s)
-        : launch<__nv_bfloat16, 1>(table, idx, wgt, out, n_bags, k_bag, d, s);
+        ? launch<bf16, 8>(table, idx, wgt, out, n_bags, k_bag, d, v, s)
+        : launch<bf16, 1>(table, idx, wgt, out, n_bags, k_bag, d, v, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -29,7 +29,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = load(*LIBS["embedding_bag"]).embedding_bag_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -41,9 +41,9 @@ def embedding_bag(
     wgt: torch.Tensor,     # [B, K] f32 per-sample weights
 ) -> torch.Tensor:
     """Launch the kernel on the current stream; returns [B, D] in the
-    table's type (float32 accumulation).  Indices must lie in [0, V): the
-    kernel neither clamps them (as JAX's gather does) nor raises (as
-    torch's does).  Does not synchronise."""
+    table's type (float32 accumulation).  An index reads the row the
+    reference's ``table[idx]`` reads: a negative one wraps once, then it is
+    clamped into [0, V - 1] (``ref.table_rows``).  Does not synchronise."""
     device = table.device
     check("table", table, device, 2, tuple(_DTYPES))
     check("idx", idx, device, 2)
@@ -61,5 +61,6 @@ def embedding_bag(
     vec16 = (d * table.element_size()) % 16 == 0 and table.data_ptr() % 16 == 0
     launch("embedding_bag", _launcher(), device,
            table.data_ptr(), idx.data_ptr(), wgt.data_ptr(), out.data_ptr(),
-           n_bags, k_bag, d, _DTYPES[table.dtype], int(vec16))
+           n_bags, k_bag, d, table.shape[0], _DTYPES[table.dtype],
+           int(vec16))
     return out

@@ -17,8 +17,9 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
 
     CUDA tensors launch the hand-written kernel (float32 / bfloat16 table,
     int32 indices, float32 weights); CPU tensors take the plain torch
-    version; another device or a mix raises.  Indices are taken to be in
-    range: the kernel does not check them."""
+    version; another device or a mix raises.  An index reads the row the
+    reference op's ``table[idx]`` reads: a negative one wraps once, then
+    it is clamped into [0, V - 1] (both paths; ``ref.table_rows``)."""
     if device_kind("embedding_bag", table, idx, wgt) == "cuda":
         return K.embedding_bag(table, idx, wgt)
     return embedding_bag_ref(table, idx, wgt)

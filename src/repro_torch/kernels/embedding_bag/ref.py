@@ -12,9 +12,17 @@ from __future__ import annotations
 import torch
 
 
+def table_rows(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The rows JAX's ``table[idx]`` reads (int64): a negative index wraps
+    once (+ ``n_rows``), then every index is clamped into
+    [0, n_rows - 1], so -V - 1 reads row 0 and V + 3 row V - 1."""
+    i = idx.long()
+    return torch.where(i < 0, i + n_rows, i).clamp_(0, n_rows - 1)
+
+
 def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
                       wgt: torch.Tensor) -> torch.Tensor:
     """out[b] = Σ_k wgt[b, k] · table[idx[b, k]]: [V, D], [B, K], [B, K] →
-    [B, D] in the table's type."""
-    rows = table[idx.long()]                 # [B, K, D]
+    [B, D] in the table's type; out-of-range indices as ``table_rows``."""
+    rows = table[table_rows(idx, table.shape[0])]    # [B, K, D]
     return (rows.float() * wgt[..., None].float()).sum(1).to(table.dtype)

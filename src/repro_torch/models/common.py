@@ -1,6 +1,6 @@
-"""Shared model substrate: param specs, norms, RoPE, SwiGLU, decode attention.
+"""Shared model substrate: param specs, norms, RoPE, SwiGLU, attention, loss.
 
-The port of ``repro/models/common.py``'s serving half.  A model's weights
+The port of ``repro/models/common.py``.  A model's weights
 are a nested dict of tensors, each described by a :class:`ParamSpec`
 (shape, torch dtype, initializer, scale); :func:`init_params` materializes
 them on a device from an explicit ``torch.Generator``, and
@@ -10,9 +10,18 @@ them on a device from an explicit ``torch.Generator``, and
 The numerics follow the reference line for line, casts included: norms,
 RoPE and attention compute in float32 and cast back to the input's type.
 The reference's GSPMD partition specs and sharding hints have no meaning
-on one card and are not carried.  The training half (chunked and flash
-attention with its backward, the chunked loss) waits for the training
-slice.
+on one card and are not carried.
+
+The training half: :func:`chunked_attention` (the tiled online-softmax
+oracle), :func:`flash_attention` (the same tiling under a
+``torch.autograd.Function`` whose backward is the reference's
+FlashAttention-2 recompute: it saves only q, k, v, out and lse) and
+:func:`chunked_xent` (the tied LM head's loss a chunk at a time, each chunk
+recomputed in the backward).  The reference's ``lax.scan`` loops are
+Python loops over the same tiles, in the same order; its ``unroll``
+knobs only shape a scan for the TPU dry-run's cost analysis and are not
+carried.  Like the reference, every tile is computed, masked ones
+included (block skipping is left to a fused kernel).
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,18 +82,33 @@ def count_params(specs: ParamTree) -> int:
     return sum(int(math.prod(s.shape)) for _, s in _leaves(specs))
 
 
-def register_tree(module: nn.Module, tree: ParamTree) -> None:
+def register_tree(module: nn.Module, tree: ParamTree, *,
+                  trainable: bool = False) -> None:
     """Hang a nested dict of tensors on ``module``: a dict becomes a child
-    module, a tensor a parameter (no gradient: these are served weights).
+    module, a tensor a parameter that shares the tensor's storage; it takes
+    gradients only when ``trainable`` (served weights do not).
     ``state_dict`` keys are then the tree's paths joined with ``.``."""
     for name, v in tree.items():
         if isinstance(v, dict):
             child = nn.Module()
-            register_tree(child, v)
+            register_tree(child, v, trainable=trainable)
             module.add_module(name, child)
         else:
             module.register_parameter(
-                name, nn.Parameter(v, requires_grad=False))
+                name, nn.Parameter(v, requires_grad=trainable))
+
+
+def nest(flat: Dict[str, Any]) -> ParamTree:
+    """Dotted keys (a ``state_dict``, ``named_parameters``) → the nested
+    tree they name: ``{"attn.wq": t}`` → ``{"attn": {"wq": t}}``."""
+    tree: ParamTree = {}
+    for k, v in flat.items():
+        *path, leaf = k.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
 
 
 # --------------------------------------------------------------------- #
@@ -151,3 +176,252 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrs,bsgd->bgrd", p, v_cache.float())
     return out.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+# --------------------------------------------------------------------- #
+# attention — chunked online-softmax (flash-style, plain torch)
+# --------------------------------------------------------------------- #
+def _pad_t(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Pad dim 1 (time) of ``x`` with ``n`` zero rows."""
+    if not n:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], n) + x.shape[2:])], 1)
+
+
+def chunked_attention(
+    q: torch.Tensor,            # [B, T, H, Dh]
+    k: torch.Tensor,            # [B, S, Hkv, Dh]
+    v: torch.Tensor,            # [B, S, Hkv, Dh]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,   # sliding window (tokens), None = full
+    q_offset: int = 0,              # absolute position of q[0]
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Flash-style attention, doubly tiled: outer loop over q blocks,
+    inner over KV blocks with running (max, denom).  The live tile is
+    [B, qc, Hkv, rep, kc], never the [T, S] score matrix; GQA by
+    head-group broadcasting; a boolean mask as the reference's."""
+    B, T, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(Dh)
+    qc, kc = min(chunk, T), min(chunk, S)
+    nq, nk = (T + qc - 1) // qc, (S + kc - 1) // kc
+    q = _pad_t(q, nq * qc - T)
+    k = _pad_t(k, nk * kc - S)
+    v = _pad_t(v, nk * kc - S)
+    qb = (q.reshape(B, nq, qc, Hkv, rep, Dh) * scale).float()
+    kb = k.reshape(B, nk, kc, Hkv, Dh)
+    vb = v.reshape(B, nk, kc, Hkv, Dh)
+    dev = q.device
+    blocks = []
+    for iq in range(nq):
+        qi = qb[:, iq]
+        q_pos = q_offset + iq * qc + torch.arange(qc, device=dev)
+        m = torch.full((B, qc, Hkv, rep), NEG_INF, device=dev)
+        l = torch.zeros((B, qc, Hkv, rep), device=dev)
+        acc = torch.zeros((B, qc, Hkv, rep, Dh), device=dev)
+        for ik in range(nk):
+            key_pos = ik * kc + torch.arange(kc, device=dev)
+            s = torch.einsum("bqgrd,bcgd->bqgrc", qi, kb[:, ik].float())
+            mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= q_pos[:, None] >= key_pos[None, :]
+            if window is not None:
+                mask &= q_pos[:, None] - key_pos[None, :] < window
+            mask &= (key_pos < S)[None, :]
+            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            pexp = torch.exp(s - m_new[..., None])
+            l = l * alpha + pexp.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqgrc,bcgd->bqgrd", pexp, vb[:, ik].float())
+            m = m_new
+        blocks.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.stack(blocks, 1).reshape(B, nq * qc, H, Dh)
+    return out[:, :T].to(q.dtype)
+
+
+# --------------------------------------------------------------------- #
+# flash attention with its own backward (memory-bounded fwd AND bwd)
+# --------------------------------------------------------------------- #
+def flash_attention(q, k, v, window: Optional[int] = None, *,
+                    causal: bool = True, chunk: int = 512,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Differentiable flash attention.  Forward = online-softmax double
+    tiling; backward = the FlashAttention recompute scheme of the
+    reference's ``custom_vjp``, saving only (q, k, v, out, lse): O(T)
+    residuals instead of the O(T²/chunk) ones autograd through the tiled
+    forward would keep.  ``window``: an int, or None (= 2**30)."""
+    window = 2**30 if window is None else int(window)
+    return _Flash.apply(q, k, v, window, causal, chunk, q_offset)
+
+
+def _blockify(q, k, v, chunk: int):
+    B, T, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qc, kc = min(chunk, T), min(chunk, S)
+    nq, nk = (T + qc - 1) // qc, (S + kc - 1) // kc
+    q = _pad_t(q, nq * qc - T)
+    k = _pad_t(k, nk * kc - S)
+    v = _pad_t(v, nk * kc - S)
+    rep = H // Hkv
+    qb = q.reshape(B, nq, qc, Hkv, rep, Dh)
+    kb = k.reshape(B, nk, kc, Hkv, Dh)
+    vb = v.reshape(B, nk, kc, Hkv, Dh)
+    return qb, kb, vb, (B, T, S, H, Hkv, rep, Dh, qc, kc, nq, nk)
+
+
+def _mask_penalty(q_pos, key_pos, S: int, window: int,
+                  causal: bool) -> torch.Tensor:
+    """Additive float32 penalty [qc, kc] (0 = keep, NEG_INF = mask), as
+    the reference adds it to the score tile."""
+    m = (key_pos < S)[None, :]
+    if causal:
+        m = m & (q_pos[:, None] >= key_pos[None, :])
+    m = m & (q_pos[:, None] - key_pos[None, :] < window)
+    return torch.where(m, 0.0, NEG_INF).to(torch.float32)
+
+
+def _flash_fwd_impl(q, k, v, window: int, causal: bool, chunk: int,
+                    q_offset: int):
+    """(out [B, T, H, Dh] in q's type, lse [B, T, Hkv, rep] float32)."""
+    qb, kb, vb, dims = _blockify(q, k, v, chunk)
+    B, T, S, H, Hkv, rep, Dh, qc, kc, nq, nk = dims
+    scale = 1.0 / math.sqrt(Dh)
+    qb = (qb * scale).float()
+    dev = q.device
+    outs, lses = [], []
+    for iq in range(nq):
+        qi = qb[:, iq]
+        q_pos = q_offset + iq * qc + torch.arange(qc, device=dev)
+        m = torch.full((B, qc, Hkv, rep), NEG_INF, device=dev)
+        l = torch.zeros((B, qc, Hkv, rep), device=dev)
+        acc = torch.zeros((B, qc, Hkv, rep, Dh), device=dev)
+        for ik in range(nk):
+            key_pos = ik * kc + torch.arange(kc, device=dev)
+            s = torch.einsum("bqgrd,bcgd->bqgrc", qi, kb[:, ik].float())
+            pen = _mask_penalty(q_pos, key_pos, S, window, causal)
+            s = s + pen[None, :, None, None, :]
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            pexp = torch.exp(s - m_new[..., None])
+            l = l * alpha + pexp.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqgrc,bcgd->bqgrd", pexp, vb[:, ik].float())
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    out = torch.stack(outs, 1).reshape(B, nq * qc, H, Dh)
+    out = out[:, :T].to(q.dtype)
+    lse = torch.stack(lses, 1).reshape(B, nq * qc, Hkv, rep)[:, :T]
+    return out, lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, window: int, causal: bool,
+               chunk: int, q_offset: int):
+    """The reference's fused single pass (FlashAttention-2 style): outer
+    loop over KV blocks emitting dK / dV a block, one float32 dQ
+    accumulator; each (q, kv) tile's P is computed once."""
+    qb, kb, vb, dims = _blockify(q, k, v, chunk)
+    B, T, S, H, Hkv, rep, Dh, qc, kc, nq, nk = dims
+    scale = 1.0 / math.sqrt(Dh)
+    qb = (qb * scale).float()
+    pad = nq * qc - T
+    dof = dout.float()
+    dob = _pad_t(dof, pad).reshape(B, nq, qc, Hkv, rep, Dh)
+    lseb = _pad_t(lse, pad).reshape(B, nq, qc, Hkv, rep)
+    # D_i = rowsum(dO ∘ O)
+    Db = _pad_t((dof * out.float()).sum(-1).reshape(B, T, Hkv, rep),
+                pad).reshape(B, nq, qc, Hkv, rep)
+    dev = q.device
+    dq = [torch.zeros((B, qc, Hkv, rep, Dh), device=dev) for _ in range(nq)]
+    dks, dvs = [], []
+    for ik in range(nk):
+        ki, vi = kb[:, ik].float(), vb[:, ik].float()
+        key_pos = ik * kc + torch.arange(kc, device=dev)
+        dk = torch.zeros((B, kc, Hkv, Dh), device=dev)
+        dv = torch.zeros((B, kc, Hkv, Dh), device=dev)
+        for iq in range(nq):
+            qi, doi = qb[:, iq], dob[:, iq]
+            q_pos = q_offset + iq * qc + torch.arange(qc, device=dev)
+            s = torch.einsum("bqgrd,bcgd->bqgrc", qi, ki)
+            pen = _mask_penalty(q_pos, key_pos, S, window, causal)
+            s = s + pen[None, :, None, None, :]
+            p = torch.exp(s - lseb[:, iq][..., None])
+            dv = dv + torch.einsum("bqgrc,bqgrd->bcgd", p, doi)
+            dp = torch.einsum("bqgrd,bcgd->bqgrc", doi, vi)
+            ds = p * (dp - Db[:, iq][..., None])
+            dk = dk + torch.einsum("bqgrc,bqgrd->bcgd", ds, qi)
+            dq[iq] = dq[iq] + torch.einsum("bqgrc,bcgd->bqgrd", ds, ki)
+        dks.append(dk)
+        dvs.append(dv)
+    dqf = torch.stack(dq, 1).reshape(B, nq * qc, H, Dh)[:, :T]
+    dkf = torch.stack(dks, 1).reshape(B, nk * kc, Hkv, Dh)[:, :S]
+    dvf = torch.stack(dvs, 1).reshape(B, nk * kc, Hkv, Dh)[:, :S]
+    return (dqf * scale).to(q.dtype), dkf.to(k.dtype), dvf.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash`` custom_vjp: forward ``_flash_fwd_impl``,
+    residuals (q, k, v, out, lse) and nothing else, backward
+    ``_flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal, chunk, q_offset):
+        out, lse = _flash_fwd_impl(q, k, v, window, causal, chunk, q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (window, causal, chunk, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+# --------------------------------------------------------------------- #
+# loss — chunked softmax cross-entropy (never materializes [T, vocab])
+# --------------------------------------------------------------------- #
+def _chunk_loss(hx: torch.Tensor, lx: torch.Tensor,
+                emb: torch.Tensor) -> torch.Tensor:
+    """One chunk's summed cross-entropy against the tied head.  The gold
+    logit is ``take_along_axis``'s: a label in [-V, -1] wraps, one outside
+    [-V, V) gives NaN."""
+    logits = torch.einsum("btd,vd->btv", hx.float(), emb.float())
+    lse = torch.logsumexp(logits, dim=-1)
+    V = logits.shape[-1]
+    lab = lx.long()
+    ok = (lab >= -V) & (lab < V)
+    idx = torch.where(lab < 0, lab + V, lab).clamp_(0, V - 1)
+    gold = torch.gather(logits, -1, idx[..., None])[..., 0]
+    gold = torch.where(ok, gold, float("nan"))
+    return (lse - gold).sum()
+
+
+def chunked_xent(
+    h: torch.Tensor,          # [B, T, D] final hidden states
+    emb: torch.Tensor,        # [V, D] (tied LM head)
+    labels: torch.Tensor,     # [B, T] int
+    *,
+    n_chunks: int = 8,
+) -> torch.Tensor:
+    """Mean token cross-entropy, ``n_chunks`` chunks of the sequence one
+    after another, each under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``): the [chunk, vocab] logits are recomputed in the
+    backward, never kept."""
+    B, T, D = h.shape
+    assert T % n_chunks == 0, "seq len must divide loss chunks"
+    c = T // n_chunks
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        hx, lx = h[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        if torch.is_grad_enabled():
+            part = checkpoint(_chunk_loss, hx, lx, emb, use_reentrant=False)
+        else:
+            part = _chunk_loss(hx, lx, emb)
+        tot = tot + part
+    return tot / (B * T)

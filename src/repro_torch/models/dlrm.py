@@ -101,12 +101,15 @@ class DLRM(nn.Module):
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Single-hot bag == gather; [B] int32 → [B, dim], as a bag of one row
-    with weight 1.0 through the ``embedding_bag`` op (the kernel on CUDA
-    tensors).  The kernel does not bound-check: every index must lie in
-    ``[0, rows)``, as ``data.pipeline.dlrm_batch``'s do."""
+    through the ``embedding_bag`` op (the kernel on CUDA tensors).  The
+    reference's ``jnp.take``: an id in [-V, -1] wraps (the op wraps it),
+    and one outside [-V, V), V the padded ``table.shape[0]``, gives a NaN
+    row, here by the weight NaN (NaN x any row); every other weight is
+    1.0, so in-range rows come back exact."""
     rows = idx.contiguous()[:, None]
-    ones = torch.ones(rows.shape, dtype=torch.float32, device=rows.device)
-    return EB.embedding_bag(table, rows, ones)
+    n = table.shape[0]
+    wgt = torch.where((rows >= -n) & (rows < n), 1.0, float("nan"))
+    return EB.embedding_bag(table, rows, wgt.to(torch.float32))
 
 
 def _mlp(params: DLRM, prefix: str, x: torch.Tensor, n: int) -> torch.Tensor:

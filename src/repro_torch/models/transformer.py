@@ -1,21 +1,23 @@
 """Decoder-only LM family: dense + MoE, GQA, qk-norm, RoPE, local:global.
 
-The port of ``repro/models/transformer.py``'s decode path: one configurable
-block covers the reference's LM archs (GQA with an explicit d_head,
-optional per-head qk RMS-norm, gemma3's sliding-window : global
-interleave).  :class:`Transformer` is an ``nn.Module`` whose
-``state_dict`` keys are the reference's tree paths (``embed``,
-``attn.wq``, ``ffn.w_down``, ``final_norm``); per-layer weights stay
-stacked on a leading layer axis, as the reference's scan reads them.
+The port of ``repro/models/transformer.py``: one configurable block covers
+the reference's five LM archs (GQA with an explicit d_head, optional
+per-head qk RMS-norm, gemma3's sliding-window : global interleave, and
+the top-k routed MoE FFN with capacity-bucketed dispatch).
+:class:`Transformer` is an ``nn.Module`` whose ``state_dict`` keys are
+the reference's tree paths (``embed``, ``attn.wq``, ``ffn.w_down``,
+``final_norm``); per-layer weights stay stacked on a leading layer axis,
+as the reference's scan reads them.
 
 :func:`serve_step` decodes one token against a KV cache.  It writes the
 new keys and values into the cache in place (the reference's
 ``dynamic_update_slice``, start clamped the same way) and returns the
-same cache tensors.
-
-Waits for the training slice (ROADMAP Queue 1 item 5): the MoE FFN, the
-cache-free forward (flash attention), ``loss_fn`` and ``prefill_step``.
-They raise ``NotImplementedError``; nothing falls back.
+same cache tensors.  The cache-free :func:`forward` (flash attention,
+each layer under ``torch.utils.checkpoint`` when ``cfg.remat``) serves
+:func:`loss_fn` (the chunked LM-head loss plus the MoE aux loss) and
+:func:`prefill_step`.  Token ids read the embedding as the reference's
+``embed[tokens]`` does: a negative id wraps once, then ids are clamped
+into the vocabulary.
 """
 
 from __future__ import annotations
@@ -25,20 +27,17 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.embedding_bag.ref import table_rows
 from repro_torch.models import common as C
-
-#: What the parts that wait for the training slice raise.
-_TRAINING_SLICE = ("waits for the training slice of the port "
-                   "(ROADMAP Queue 1 item 5)")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's config, less the knobs only its training and TPU
-    paths read (``attn_chunk``, ``loss_chunks``, ``capacity_factor``,
-    ``aux_loss_coef``, ``remat``, ``probe_unroll``): they come with their
-    readers in the training slice."""
+    """The reference's config, less ``probe_unroll`` (it unrolls the
+    reference's scans for the TPU dry-run's cost analysis; the port has no
+    scan)."""
     name: str
     n_layers: int
     d_model: int
@@ -50,13 +49,18 @@ class TransformerConfig:
     # MoE ( d_ff is the per-expert hidden when moe_experts > 0 )
     moe_experts: int = 0
     moe_top_k: int = 0
+    capacity_factor: float = 1.25
     # attention flavour
     qk_norm: bool = False
     local_window: int = 0     # sliding-window size (0 = full attention)
     global_every: int = 0     # every k-th layer is global (gemma3: 6)
     rope_theta: float = 10_000.0
-    # numerics
+    # numerics / scheduling
     dtype: Any = torch.bfloat16
+    attn_chunk: int = 1024
+    loss_chunks: int = 8
+    remat: bool = True
+    aux_loss_coef: float = 0.01
 
     @property
     def is_moe(self) -> bool:
@@ -130,12 +134,14 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
 
 class Transformer(nn.Module):
     """The model's weights (a tree from :func:`common.init_params` or one
-    to be filled by ``load_state_dict``) and its config."""
+    to be filled by ``load_state_dict``) and its config.  The parameters
+    share the tree's tensors; they take gradients when ``trainable``."""
 
-    def __init__(self, cfg: TransformerConfig, params: C.ParamTree):
+    def __init__(self, cfg: TransformerConfig, params: C.ParamTree, *,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        C.register_tree(self, params)
+        C.register_tree(self, params, trainable=trainable)
 
 
 # --------------------------------------------------------------------- #
@@ -175,17 +181,20 @@ def _attention(x, lp, cfg: TransformerConfig, layer_idx: int, positions,
     window = _layer_window(cfg, layer_idx)
 
     if kv_cache is None:
-        raise NotImplementedError(
-            "the cache-free forward (flash attention) " + _TRAINING_SLICE)
-    kc, vc = kv_cache
-    # lax.dynamic_update_slice clamps its start so the update fits
-    pos0 = min(max(cache_len, 0), kc.shape[1] - T)
-    kc[:, pos0:pos0 + T] = k
-    vc[:, pos0:pos0 + T] = v
-    o = C.decode_attention(q, kc, vc, cache_len + T, window=window)
+        o = C.flash_attention(q, k, v, window, causal=True,
+                              chunk=cfg.attn_chunk)
+        new_cache = None
+    else:
+        kc, vc = kv_cache
+        # lax.dynamic_update_slice clamps its start so the update fits
+        pos0 = min(max(cache_len, 0), kc.shape[1] - T)
+        kc[:, pos0:pos0 + T] = k
+        vc[:, pos0:pos0 + T] = v
+        o = C.decode_attention(q, kc, vc, cache_len + T, window=window)
+        new_cache = (kc, vc)
     o = o.reshape(B, T, H * dh)
     out = torch.einsum("bth,hd->btd", o, lp["wo"].to(o.dtype))
-    return x + out, (kc, vc)
+    return x + out, new_cache
 
 
 def _dense_ffn(x, lp):
@@ -193,13 +202,71 @@ def _dense_ffn(x, lp):
     return x + C.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
+def _dispatch(flat_e: torch.Tensor, E: int, cap: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keep, slot) of each assignment (expert ids ``flat_e`` [NA]):
+    its rank within its expert by a stable sort (``jnp.argsort`` is
+    stable; which assignments overflow ``cap`` depends on it), kept when
+    the rank is under ``cap``, in slot ``expert * cap + rank``, else in
+    the overflow slot ``E * cap``."""
+    ar = torch.arange(flat_e.shape[0], device=flat_e.device)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(sorted_e,
+                                torch.arange(E, device=flat_e.device))
+    rank = torch.empty_like(ar)
+    rank[order] = ar - starts[sorted_e]
+    keep = rank < cap
+    return keep, torch.where(keep, flat_e * cap + rank, E * cap)
+
+
 def _moe_ffn(x, lp, cfg: TransformerConfig):
-    raise NotImplementedError("the MoE FFN " + _TRAINING_SLICE)
+    """Top-k routed MoE with static capacity (sort + scatter dispatch);
+    returns (x + y, the Switch-style aux load-balance loss)."""
+    B, T, D = x.shape
+    E, K = cfg.moe_experts, cfg.moe_top_k
+    N = B * T
+    h = C.rms_norm(x, lp["norm"])
+    hf = h.reshape(N, D)
+    logits = torch.einsum("nd,de->ne", hf.float(), lp["router"])
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k breaks ties toward the lower index; torch.topk does not
+    # promise an order among ties (a trained router rarely has exact ones)
+    gate, idx = torch.topk(probs, K, dim=-1)          # [N, K], sorted
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    # aux load-balance loss (Switch-style)
+    me = probs.mean(0)
+    ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+        0, idx.reshape(-1),
+        torch.full((N * K,), 1.0 / (N * K), device=x.device))
+    aux = cfg.aux_loss_coef * E * torch.sum(me * ce)
+
+    NA = N * K
+    cap = int(max(1, round(NA / E * cfg.capacity_factor)))
+    keep, slot = _dispatch(idx.reshape(NA), E, cap)
+    token_of = torch.arange(NA, device=x.device) // K
+    src = torch.where(keep[:, None], hf[token_of], 0).to(h.dtype)
+    buf = torch.zeros((E * cap + 1, D), dtype=h.dtype, device=x.device)
+    buf = buf.index_add(0, slot, src)[:E * cap].reshape(E, cap, D)
+    g = torch.einsum("ecd,edf->ecf", buf, lp["w_gate"].to(buf.dtype))
+    u = torch.einsum("ecd,edf->ecf", buf, lp["w_up"].to(buf.dtype))
+    act = torch.nn.functional.silu(g.float()).to(buf.dtype) * u
+    out = torch.einsum("ecf,efd->ecd", act, lp["w_down"].to(buf.dtype))
+
+    out_flat = out.reshape(E * cap, D)
+    y_assign = torch.where(
+        keep[:, None], out_flat[torch.clamp(slot, max=E * cap - 1)], 0,
+    ).to(h.dtype) * gate.reshape(NA)[:, None].to(h.dtype)
+    # token_of = assignment // K is contiguous: the combine is a reshape
+    # and a sum over K, not a scatter
+    y = y_assign.reshape(N, K, D).sum(1)
+    return x + y.reshape(B, T, D), aux
 
 
 def forward(
     params: Transformer,
-    tokens: torch.Tensor,         # [B, T] int32
+    tokens: torch.Tensor,         # [B, T] int
     cfg: TransformerConfig,
     *,
     positions: Optional[torch.Tensor] = None,
@@ -207,31 +274,51 @@ def forward(
     cache_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor,
            Optional[Tuple[torch.Tensor, torch.Tensor]]]:
-    """Returns (hidden [B,T,D], aux_loss, kv_caches written in place)."""
-    if kv_caches is None:
-        raise NotImplementedError(
-            "the cache-free forward (flash attention) " + _TRAINING_SLICE)
+    """Returns (hidden [B,T,D], aux_loss summed over layers, kv_caches
+    written in place — None without a cache).  Without a cache, each
+    layer runs under ``torch.utils.checkpoint`` when ``cfg.remat`` and
+    gradients are on (the reference's ``jax.checkpoint`` of the block)."""
     B, T = tokens.shape
     if positions is None:
         positions = torch.arange(T, device=tokens.device).expand(B, T)
-    x = params.embed[tokens.long()].to(cfg.dtype)
-    kcs, vcs = kv_caches
-    cache_len = int(cache_len)
-    for i in range(cfg.n_layers):
+    x = params.embed[table_rows(tokens, cfg.vocab)].to(cfg.dtype)
+    decode = kv_caches is not None
+    if decode:
+        kcs, vcs = kv_caches
+        cache_len = int(cache_len)
+
+    def block(x, i):
         x, _ = _attention(x, _layer(params.attn, i), cfg, i, positions,
-                          kv_cache=(kcs[i], vcs[i]), cache_len=cache_len)
+                          kv_cache=(kcs[i], vcs[i]) if decode else None,
+                          cache_len=cache_len)
         lp = _layer(params.ffn, i)
-        x = _moe_ffn(x, lp, cfg)[0] if cfg.is_moe else _dense_ffn(x, lp)
+        if cfg.is_moe:
+            return _moe_ffn(x, lp, cfg)
+        return _dense_ffn(x, lp), torch.zeros((), device=x.device)
+
+    remat = cfg.remat and not decode and torch.is_grad_enabled()
+    auxes = []
+    for i in range(cfg.n_layers):
+        if remat:
+            x, aux = checkpoint(block, x, i, use_reentrant=False)
+        else:
+            x, aux = block(x, i)
+        auxes.append(aux)
     x = C.rms_norm(x, params.final_norm)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux, (kcs, vcs)
+    return x, torch.stack(auxes).sum(), (kcs, vcs) if decode else None
 
 
 # --------------------------------------------------------------------- #
 # steps
 # --------------------------------------------------------------------- #
-def loss_fn(params, batch, cfg: TransformerConfig):
-    raise NotImplementedError("loss_fn " + _TRAINING_SLICE)
+def loss_fn(params: Transformer, batch: Dict[str, torch.Tensor],
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (``cfg.loss_chunks`` chunks) plus the MoE aux."""
+    h, aux, _ = forward(params, batch["tokens"], cfg)
+    xent = C.chunked_xent(h, params.embed, batch["labels"],
+                          n_chunks=cfg.loss_chunks)
+    return xent + aux
 
 
 def make_kv_cache_specs(cfg: TransformerConfig, batch: int, max_seq: int
@@ -257,5 +344,9 @@ def serve_step(params: Transformer, kv_caches, tokens: torch.Tensor,
     return logits[:, -1], new_caches
 
 
-def prefill_step(params, tokens, cfg: TransformerConfig):
-    raise NotImplementedError("prefill_step " + _TRAINING_SLICE)
+def prefill_step(params: Transformer, tokens: torch.Tensor,
+                 cfg: TransformerConfig) -> torch.Tensor:
+    """Inference prefill: the cache-free forward; returns the last
+    position's logits [B, V] in float32."""
+    h, _, _ = forward(params, tokens, cfg)
+    return torch.einsum("bd,vd->bv", h[:, -1].float(), params.embed.float())

@@ -885,3 +885,124 @@ def test_lm_decode_on_cuda_matches_cpu(cuda):
             toks = {d: out[d].argmax(-1)[:, None].to(torch.int32)
                     for d in out}
     assert sum(kernels.launch_count(k) for k in kernels.KERNELS) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_kernel_out_of_range_ids(cuda, dtype):
+    """Ids V, V + 3, -1, -V and -V - 1 at D 128 (float32: the wide kernel;
+    bfloat16: the narrow one), bags of 1 and 3: the kernel reads the rows
+    its plain version reads (wrap once, then clamp): within the
+    tolerances above (bit for bit at one lookup a bag), and bit for bit
+    the kernel's own result on those rows given in range; -1 is a row
+    (the last), not a skipped lookup."""
+    gen = torch.Generator().manual_seed(6)
+    V, D = 300, 128
+    table = torch.randn((V, D), generator=gen).to(dtype).to(cuda)
+    odd = torch.tensor([V, V + 3, -1, -V, -V - 1], dtype=torch.int32)
+    for k_bag in (1, 3):
+        idx = torch.randint(0, V, (5, k_bag), generator=gen,
+                            dtype=torch.int32)
+        idx[:, 0] = odd
+        wgt = torch.randn((5, k_bag), generator=gen)
+        got = embedding_bag(table, idx.to(cuda), wgt.to(cuda))
+        want = embedding_bag_ref(table, idx.to(cuda), wgt.to(cuda)).float()
+        if k_bag == 1:
+            assert torch.equal(got.float(), want)
+        elif dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            scale = embedding_bag_ref(table.float().abs(), idx.to(cuda),
+                                      wgt.abs().to(cuda))
+            tol = 1e-5 * scale + want.abs() * 2.0 ** -7
+            assert bool(((got.float() - want).abs() <= tol).all())
+        rows = torch.where(idx < 0, idx + V, idx).clamp(0, V - 1)
+        assert rows[:, 0].tolist() == [V - 1, V - 1, V - 1, 0, 0]
+        assert torch.equal(got, embedding_bag(table, rows.to(cuda),
+                                              wgt.to(cuda)))
+
+
+@pytest.fixture
+def fp32_matmul():
+    """float32 matmuls without TF32, as the CPU computes them."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_flash_attention_on_cuda_matches_cpu(cuda, fp32_matmul):
+    """The flash Function's forward within 1e-5 and its (q, k, v)
+    gradients within 1e-4 of each one's largest magnitude, float32,
+    GQA with a window over several tiles."""
+    gen = torch.Generator().manual_seed(2)
+    shapes = ((2, 100, 8, 16), (2, 100, 2, 16), (2, 100, 2, 16))
+    base = [torch.randn(s, generator=gen) for s in shapes]
+    outs = {}
+    for dev in ("cpu", cuda):
+        qkv = [t.clone().to(dev).requires_grad_() for t in base]
+        out = MC.flash_attention(*qkv, 25, chunk=32)
+        (out.float() ** 2).sum().backward()
+        outs[str(dev)] = [out.detach().cpu()] + [t.grad.cpu() for t in qkv]
+    want, got = outs["cpu"], outs[str(cuda)]
+    assert (got[0] - want[0]).abs().max() <= 1e-5 * want[0].abs().max()
+    for g, w in zip(got[1:], want[1:]):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+def test_moe_kept_set_on_cuda_matches_cpu(cuda, fp32_matmul):
+    """qwen3-moe SMOKE's MoE layer at capacity_factor 0.5 (assignments
+    dropped): the same routing, kept set and slots on the card; the
+    output within 1e-5 of the largest."""
+    from repro_torch.configs import qwen3_moe_235b
+
+    cfg = dataclasses.replace(qwen3_moe_235b.SMOKE, dtype=torch.float32,
+                              capacity_factor=0.5)
+    params = MC.init_params(TM.param_specs(cfg),
+                            torch.Generator().manual_seed(3), "cpu")
+    x = torch.randn((2, 48, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(4))
+    res = {}
+    for dev in ("cpu", cuda):
+        lp = TM._layer(TM.Transformer(cfg, params).to(dev).ffn, 0)
+        with torch.no_grad():
+            h = MC.rms_norm(x.to(dev), lp["norm"]).reshape(-1, cfg.d_model)
+            idx = torch.topk(torch.softmax(h @ lp["router"], -1),
+                             cfg.moe_top_k, -1).indices.reshape(-1)
+            cap = int(max(1, round(idx.numel() / cfg.moe_experts
+                                   * cfg.capacity_factor)))
+            keep, slot = TM._dispatch(idx, cfg.moe_experts, cap)
+            y, _ = TM._moe_ffn(x.to(dev), lp, cfg)
+        res[str(dev)] = (idx.cpu(), keep.cpu(), slot.cpu(), y.cpu())
+    want, got = res["cpu"], res[str(cuda)]
+    assert 0 < int(want[1].sum()) < want[1].numel()
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert (got[3] - want[3]).abs().max() <= 1e-5 * want[3].abs().max()
+
+
+def test_adamw_step_on_cuda_matches_cpu(cuda):
+    """One AdamW update of a float32 / bfloat16 tree from the same grads
+    and state: float32 leaves and moments within float32 rounding, the
+    bfloat16 weight within one ulp."""
+    from repro_torch.train import optimizer as opt
+
+    gen = torch.Generator().manual_seed(5)
+    params = {"a": torch.randn((64, 32), generator=gen),
+              "b": {"w": torch.randn((4, 8, 16), generator=gen)
+                    .to(torch.bfloat16)}}
+    grads = opt.tree_map(lambda p: torch.randn(p.shape, generator=gen)
+                         .to(p.dtype), params)
+    cfg = opt.AdamWConfig(lr=0.01)
+    res = {}
+    for dev in ("cpu", cuda):
+        p = opt.tree_map(lambda t: t.to(dev), params)
+        g = opt.tree_map(lambda t: t.to(dev), grads)
+        p2, st = opt.adamw_update(g, opt.adamw_init(p), p, cfg)
+        res[str(dev)] = [t.cpu() for t in opt.leaves(p2) + opt.leaves(st)]
+    for g, w in zip(res[str(cuda)], res["cpu"]):
+        assert g.dtype == w.dtype
+        if w.dtype == torch.bfloat16:
+            ulp = 2.0 ** (torch.floor(torch.log2(w.float().abs())) - 7)
+            assert ((g.float() - w.float()).abs() <= ulp).all()
+        else:
+            torch.testing.assert_close(g, w, rtol=2e-6, atol=1e-7)

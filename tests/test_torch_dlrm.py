@@ -174,6 +174,51 @@ def test_lookups_equal_take_and_launch_nothing_on_cpu(name):
     assert all(kernels.launch_count(k) == 0 for k in kernels.KERNELS)
 
 
+def _odd_ids(V: int) -> np.ndarray:
+    return np.array([V, V + 3, -1, -V, -V - 1], np.int32)
+
+
+def _same_nan_and_close(got: torch.Tensor, want) -> None:
+    """NaN exactly where the reference has NaN, the rest within the
+    float32 tolerance."""
+    g, w = got.numpy(), np.asarray(want)
+    assert np.array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_allclose(g[~np.isnan(g)], w[~np.isnan(w)], rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_out_of_range_ids_give_take_s_rows():
+    """``jnp.take`` wraps an id in [-V, -1] and gives a NaN row for one
+    outside [-V, V) (V the padded table height): ids V, V + 3, -1, -V and
+    -V - 1 in one sparse column of the forward, and as retrieval
+    candidates, give the reference's NaN / wrapped results."""
+    jcfg, tcfg, tree, model = _models("smoke", True)
+    b = _batch(jcfg, 6, b=5)
+    V = int(tree["tables"]["t4"].shape[0])
+    b["sparse"][:, 4] = _odd_ids(V)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    lookup = TD.embedding_bag(model.tables.t4, tb["sparse"][:, 4])
+    want = np.asarray(jnp.take(tree["tables"]["t4"], jb["sparse"][:, 4],
+                               axis=0))
+    assert np.array_equal(np.isnan(lookup.numpy()), np.isnan(want))
+    assert np.isnan(want[[0, 1, 4]]).all() and not np.isnan(want[2:4]).any()
+    assert np.array_equal(lookup.numpy()[2:4], want[2:4])
+    with torch.no_grad():
+        _same_nan_and_close(TD.serve_step(model, tb, tcfg),
+                            JD.serve_step(tree, jb, jcfg))
+    V0 = int(tree["tables"]["t0"].shape[0])
+    rb = dict(dense=b["dense"][:1], candidates=np.concatenate(
+        [_odd_ids(V0), np.arange(3, dtype=np.int32)])[None])
+    want = JD.retrieval_step(tree, {k: jnp.asarray(v) for k, v in rb.items()},
+                             jcfg)
+    with torch.no_grad():
+        got = TD.retrieval_step(
+            model, {k: torch.from_numpy(v) for k, v in rb.items()}, tcfg)
+    _same_nan_and_close(got, want)
+    assert np.isnan(np.asarray(want)[[0, 1, 4]]).all()
+
+
 def test_state_dict_keys_are_the_tree_paths():
     _, tcfg, tree, model = _models("smoke", False)
     keys = list(model.state_dict())

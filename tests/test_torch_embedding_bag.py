@@ -75,6 +75,33 @@ def _check_against_reference(V, B, K, D, jdt, tdt, tol):
     assert torch.equal(embedding_bag_ref(*targs), got)
 
 
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+def test_out_of_range_ids_read_the_reference_rows(jdt, tdt, tol):
+    """The reference op's ``table[idx]`` wraps a negative id once, then
+    clamps: ids V, V + 3, -1, -V and -V - 1 (among in-range ones, bags of
+    1 and 3) read the rows the reference reads."""
+    rng = np.random.default_rng(5)
+    V, D = 40, 16
+    jtable = jnp.asarray(rng.normal(size=(V, D)), jdt)
+    odd = np.array([V, V + 3, -1, -V, -V - 1], np.int32)
+    for K in (1, 3):
+        idx = rng.integers(0, V, size=(5, K)).astype(np.int32)
+        idx[:, 0] = odd
+        wgt = rng.normal(size=(5, K)).astype(np.float32)
+        got = embedding_bag(torch.from_numpy(np.array(jtable, np.float32))
+                            .to(tdt), torch.from_numpy(idx),
+                            torch.from_numpy(wgt))
+        want = jops.embedding_bag(jtable, jnp.asarray(idx), jnp.asarray(wgt),
+                                  force_pallas=False)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+        rows = np.where(idx < 0, idx + V, idx).clip(0, V - 1)
+        assert torch.equal(got, embedding_bag(
+            torch.from_numpy(np.array(jtable, np.float32)).to(tdt),
+            torch.from_numpy(rows.astype(np.int32)), torch.from_numpy(wgt)))
+
+
 def test_embedding_bag_wrapper_refuses_what_it_cannot_run():
     """The kernel wrapper checks before it builds or launches anything: a
     wrong type or shape, mixed devices and CPU tensors raise, and nothing

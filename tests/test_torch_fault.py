@@ -91,8 +91,12 @@ def test_red_state_and_frame_stack_round_trip(tmp_path):
     for g, w in zip(got["frames"], tree["frames"]):
         _assert_state_equal(g, w)
     assert "state.log_v" in ck.manifest()["leaves"]
-    # without a device the leaves come back as numpy arrays
-    host = ck.restore(tmpl)
+    # without a device, tensors on the template's device; a numpy
+    # template gives numpy arrays
+    again = ck.restore(tmpl)
+    _assert_state_equal(again["state"], tree["state"])
+    host = ck.restore({"state": type(tmpl["state"])(
+        *(t.numpy() for t in tmpl["state"])), "frames": tmpl["frames"]})
     assert isinstance(host["state"].w, np.ndarray)
     np.testing.assert_array_equal(host["state"].w, tree["state"].w.numpy())
 

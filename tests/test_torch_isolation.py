@@ -1,9 +1,9 @@
 """The port stands alone: importing and running it — the solver, the staged
 solver with its checkpoint and fault harness, the serving layer (with
 descent on, pipelined, and sharded over four CPU devices), the DLRM and
-LM models with the data pipeline, both CLIs (every serving arch) and the
-per-PE path's spawned ranks — loads neither JAX nor the reference
-package,
+LM models with the data pipeline, the optimizers, the serving CLIs (every
+serving arch), the training CLI and the per-PE path's spawned ranks —
+loads neither JAX nor the reference package,
 an entry point without ``device=`` refuses to run when no GPU is visible,
 and CPU tensors never count as kernel launches — neither on the solver's
 or the service's path nor through the three kernel ops off it."""
@@ -40,6 +40,8 @@ SCRIPT = textwrap.dedent("""
     from repro_torch.kernels.wedge_intersect.ops import common_neighbor_stats
     from repro_torch.launch import mesh, mwis_run
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import optimizer as opt
     from repro_torch.models import common as MC
     from repro_torch.models import dlrm as DM
     from repro_torch.models import transformer as TM
@@ -136,6 +138,15 @@ SCRIPT = textwrap.dedent("""
     for arch in serve_cli.ARCHES[1:]:
         serve_cli.main(["--arch", arch, "--device", "cpu", "--requests",
                         "2", "--batch", "2", "--tokens", "2"])
+    out = train_cli.main(["--arch", "qwen3-moe-235b-a22b", "--steps", "2",
+                          "--batch", "2", "--seq", "16", "--device", "cpu",
+                          "--ckpt", tempfile.mkdtemp()])
+    assert np.isfinite(out["losses"][0]), out
+    w = {"w": torch.zeros(3, 3)}
+    st = opt.adafactor_init(w)
+    w, st = opt.adafactor_update({"w": torch.ones(3, 3)}, st, w,
+                                 opt.AdafactorConfig())
+    assert int(st.step) == 1 and float(w["w"][0, 0]) < 0
     counts = tuple(kernels.launch_count(k) for k in (
         "segment_fused", "segment_sum", "wedge_intersect", "embedding_bag"))
     assert counts == (0, 0, 0, 0), counts
@@ -147,7 +158,9 @@ SCRIPT = textwrap.dedent("""
                  lambda: SV.MWISService(),
                  lambda: serve_cli.main(["--requests", "2"]),
                  lambda: serve_cli.main(["--arch", "dlrm-mlperf"]),
-                 lambda: serve_cli.main(["--arch", "qwen3-32b"])):
+                 lambda: serve_cli.main(["--arch", "qwen3-32b"]),
+                 lambda: train_cli.main(["--steps", "1", "--ckpt",
+                                         tempfile.mkdtemp()])):
         try:
             call()
         except RuntimeError as e:

@@ -24,14 +24,18 @@ import pytest
 import torch
 
 from repro.configs import gemma3_1b as jg
+from repro.configs import grok1_314b as jgk
 from repro.configs import mistral_nemo_12b as jm
 from repro.configs import qwen3_32b as jq
+from repro.configs import qwen3_moe_235b as jqm
 from repro.models import common as JMC
 from repro.models import transformer as JT
 from repro_torch import convert
 from repro_torch.configs import gemma3_1b as tg
+from repro_torch.configs import grok1_314b as tgk
 from repro_torch.configs import mistral_nemo_12b as tm
 from repro_torch.configs import qwen3_32b as tq
+from repro_torch.configs import qwen3_moe_235b as tqm
 from repro_torch.models import common as MC
 from repro_torch.models import transformer as TT
 
@@ -40,12 +44,15 @@ from _torch_jax import _release_jax_programs  # noqa: F401
 BF16_TOL = 2.0 ** -6
 ARCHS = {"gemma3-1b": (jg, tg), "qwen3-32b": (jq, tq),
          "mistral-nemo-12b": (jm, tm)}
+#: Every LM arch's config module pair (the decode tests take the dense
+#: ones above; ``test_torch_train.py`` holds the MoE ones' numerics).
+CONFIG_ARCHS = {**ARCHS, "qwen3-moe-235b-a22b": (jqm, tqm),
+                "grok-1-314b": (jgk, tgk)}
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
-#: The reference's config fields that only its training and TPU paths
-#: read; the port's config leaves them out until the training slice.
-TRAINING_KNOBS = {"attn_chunk", "loss_chunks", "capacity_factor",
-                  "aux_loss_coef", "remat", "probe_unroll"}
+#: The reference's config fields the port leaves out: ``probe_unroll``
+#: unrolls the reference's scans for the TPU dry-run's cost analysis.
+TRAINING_KNOBS = {"probe_unroll"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -85,9 +92,9 @@ def _pair(rng, shape, dtype: str, scale: float = 1.0):
 # --------------------------------------------------------------------- #
 # configs and specs
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch", list(ARCHS))
+@pytest.mark.parametrize("arch", list(CONFIG_ARCHS))
 def test_config_copies_are_the_reference(arch):
-    j, t = ARCHS[arch]
+    j, t = CONFIG_ARCHS[arch]
     for name in ("CONFIG", "SMOKE"):
         jc, tc = getattr(j, name), getattr(t, name)
         for f in dataclasses.fields(tc):
@@ -280,19 +287,55 @@ def test_serve_step_matches_reference(arch, dtype, short):
 
 
 def test_training_half_raises():
+    """Nothing of the training half raises any more: the cache-free
+    forward, ``loss_fn``, ``prefill_step`` and MoE decode run, finite
+    (their parity is ``test_torch_train.py``'s)."""
     cfg = tg.SMOKE
     model = TT.Transformer(cfg, MC.init_params(
         TT.param_specs(cfg), torch.Generator().manual_seed(0), "cpu"))
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    for call in (lambda: TT.forward(model, tokens, cfg),
-                 lambda: TT.loss_fn(model, {"tokens": tokens}, cfg),
-                 lambda: TT.prefill_step(model, tokens, cfg)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            call()
+    with torch.no_grad():
+        h, aux, caches = TT.forward(model, tokens, cfg)
+        assert h.shape == (1, 4, cfg.d_model) and caches is None
+        assert float(aux) == 0.0
+        loss = TT.loss_fn(model, {"tokens": tokens, "labels": tokens}, cfg)
+        assert bool(torch.isfinite(loss))
+        assert TT.prefill_step(model, tokens, cfg).shape == (1, cfg.vocab)
     moe = dataclasses.replace(cfg, moe_experts=4, moe_top_k=2)
     model = TT.Transformer(moe, MC.init_params(
         TT.param_specs(moe), torch.Generator().manual_seed(0), "cpu"))
     (shape, dt), _ = TT.make_kv_cache_specs(moe, 1, 8)
     cache = (torch.zeros(shape, dtype=dt), torch.zeros(shape, dtype=dt))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TT.serve_step(model, cache, tokens[:, :1], 0, moe)
+    with torch.no_grad():
+        logits, _ = TT.serve_step(model, cache, tokens[:, :1], 0, moe)
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen3-32b"])
+def test_out_of_range_tokens_read_the_reference_rows(arch):
+    """``embed[tokens]`` in the reference wraps a negative id once, then
+    clamps: V and V + 3 read row V - 1, -1 row V - 1, -V row 0 and
+    -V - 1 row 0.  One float32 decode step with those ids, against the
+    reference's ``serve_step`` (and against in-range ids that name the
+    same rows, bit for bit on the port's side)."""
+    j, t = ARCHS[arch]
+    cfg_j = dataclasses.replace(j.SMOKE, dtype=jnp.float32)
+    cfg_t = dataclasses.replace(t.SMOKE, dtype=torch.float32)
+    tree = JMC.init_params(JT.param_specs(cfg_j), jax.random.key(9))
+    model = TT.Transformer(cfg_t, MC.init_params(
+        TT.param_specs(cfg_t), torch.Generator().manual_seed(0), "cpu"))
+    model.load_state_dict(convert.params(tree), strict=True)
+    V = cfg_t.vocab
+    tok = np.array([[V], [V + 3], [-1], [-V], [-V - 1]], np.int32)
+    same = np.array([[V - 1], [V - 1], [V - 1], [0], [0]], np.int32)
+    (shape, _), _ = TT.make_kv_cache_specs(cfg_t, 5, 6)
+    jz = jnp.zeros(shape, jnp.float32)
+    want, _ = JT.serve_step(tree, (jz, jz), jnp.asarray(tok), jnp.int32(0),
+                            cfg_j)
+    with torch.no_grad():
+        got = [TT.serve_step(model, (torch.zeros(shape), torch.zeros(shape)),
+                             torch.from_numpy(ids), 0, cfg_t)[0]
+               for ids in (tok, same)]
+    assert torch.equal(got[0], got[1])
+    want = np.asarray(want)
+    assert np.abs(got[0].numpy() - want).max() <= 1e-4 * np.abs(want).max()

@@ -72,25 +72,13 @@ def _reference(capsys, monkeypatch, argv) -> list:
     return capsys.readouterr().out.splitlines()
 
 
-def _nest(state: dict) -> dict:
-    """A state dict (``a.b`` keys) → the nested tree ``init_params`` gives."""
-    tree: dict = {}
-    for k, v in state.items():
-        *path, leaf = k.split(".")
-        node = tree
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return tree
-
-
 def _same_weights(monkeypatch, tree) -> None:
     """Both CLIs' ``init_params`` return ``tree`` (the port's by way of
     ``convert.params``, on the device the CLI asks for)."""
     monkeypatch.setattr(JMC, "init_params", lambda specs, key: tree)
     monkeypatch.setattr(
         TMC, "init_params",
-        lambda specs, gen, device: _nest(convert.params(tree, device)))
+        lambda specs, gen, device: TMC.nest(convert.params(tree, device)))
 
 
 def test_arches_are_the_reference():

@@ -92,7 +92,7 @@ def main() -> None:
     fns = {}
     for tag, lib in libs.items():
         fn = kernels.load(*lib).embedding_bag_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[tag] = fn
@@ -111,7 +111,8 @@ def main() -> None:
             wgt = torch.randn((B, k_bag), generator=gen, device=dev)
             out = torch.empty((B, D), dtype=dtype, device=dev)
             args = (table.data_ptr(), idx.data_ptr(), wgt.data_ptr(),
-                    out.data_ptr(), B, k_bag, D, EK._DTYPES[dtype], 1, stream)
+                    out.data_ptr(), B, k_bag, D, V, EK._DTYPES[dtype], 1,
+                    stream)
             tag_of = f"K={k_bag} {str(dtype)[6:]}"
             times = {tag: [] for tag in fns}
             for tag in order:

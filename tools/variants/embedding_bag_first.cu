@@ -111,9 +111,12 @@ int launch(const void* table, const void* idx, const void* wgt, void* out,
 // dtype: 0 = float32, 1 = bfloat16 (table and out).  vec16: rows move as
 // 16-byte vectors (d x element size a multiple of 16, table 16-byte
 // aligned); otherwise one element at a time.  n_bags >= 1, k_bag >= 1.
+// n_rows is the committed kernel's table height; this first design reads
+// indices unchecked and ignores it (its callers pass ids in range).
 extern "C" int embedding_bag_launch(
     const void* table, const void* idx, const void* wgt, void* out,
-    int n_bags, int k_bag, int d, int dtype, int vec16, void* stream) {
+    int n_bags, int k_bag, int d, int n_rows, int dtype, int vec16,
+    void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return vec16 ? launch<float, 4>(table, idx, wgt, out, n_bags, k_bag, d, s)
