@@ -9,8 +9,9 @@ continues):
 
   1. device  — the card as ``nvidia-smi`` names it, with its power limit
                and its maximum SM clock (which sets the operation bounds);
-  2. build   — compile the four CUDA kernels from the sources in this
-               checkout, one ``nvcc`` each, all started together;
+  2. build   — compile the four CUDA kernel libraries from the sources in
+               this checkout, one ``nvcc`` each, all started together
+               (``embedding_bag.cu`` holds the forward and the backward);
   3. kernel  — the fused segment-reduction kernel against its plain torch
                version at the test shapes (exact: all payloads are int32);
   4. ops at the micro shapes — ``segment_sum_coo``, ``common_neighbor_stats``
@@ -52,7 +53,11 @@ continues):
                128, float32 and bfloat16;
  13. embedding_bag at size — dlrm-mlperf's largest table (39,979,771 x 128)
                at ``serve_bulk`` B = 262,144, K = 1 and 4, float32 and then
-               bfloat16;
+               bfloat16; then the backward kernel (the table's gradient)
+               at the same size in float32, checked on the rows it
+               touches, timed adding into a buffer zeroed outside the
+               timed window, beside the zero fill of the dense [V, D]
+               gradient, its plain version and ``index_add_``;
  14. serve   — ``repro_torch.launch.serve --arch mwis`` on the card: the
                reference's stream of 192 requests over the three serve
                cells (4 per topology, up to serve_m: L 1,024, E 16,384),
@@ -67,13 +72,15 @@ continues):
                ``--devices 1`` (equal to the default run), with
                ``--devices`` one past the visible count (exits 2 naming
                the visible count), and with two shards on the one card
-               (the serve mesh's ``visible_devices`` seam: equal to
+               on the stream's first ``SERVE_CUT`` (64) requests (the
+               serve mesh's ``visible_devices`` seam: equal to
                ``--devices 1``; no speed is read from it), ``greedy`` on
                ``cuda`` (each result the sequential priority greedy's),
                ``rnp`` on ``cuda`` on 48 requests (its host peel loop),
-               ``rg`` on ``cuda`` with ``--descent auto`` (its serve_m
-               requests one at a time through the staged solver; each
-               result must equal the ``--descent off`` run's), then 4
+               ``rg`` on ``cuda`` with ``--descent auto`` on the first
+               ``SERVE_CUT`` requests (its serve_m requests one at a time
+               through the staged solver; each result must equal the
+               ``--descent off`` run's), then 4
                oversize GNM requests (n = 0.8 x 16,384) admitted through
                ``descent_xl``; 0 fallbacks, 0 verify failures,
                ``segment_fused`` launched and the three off-path kernels
@@ -159,6 +166,33 @@ continues):
                (cap 320), and one Adafactor train step (AdamW's float32
                moments would not fit beside the weights and grads),
                finite, its ms and peak memory.
+ 20. train-archs — DLRM and GNN training.  (a) ``dlrm_mlperf.smoke`` and
+               each GNN config's ``smoke`` on the card: ``embedding_bag``
+               forward and backward on DLRM's, ``segment_sum`` on the
+               GNNs', ``segment_fused`` and ``wedge_intersect`` never.
+               (b) dlrm-mlperf at the MLPerf widths, every table capped at
+               2,000,000 rows (13,114,880 rows, 6.7 GB a float32 copy), at
+               ``train_batch``'s B 65,536: 6 AdamW steps on one
+               ``dlrm_batch``, losses finite and falling, ms a step (p50
+               of steps 2-5), samples a second, peak memory, one more step
+               profiled; then the backward kernel timed on the batch's ids
+               into the largest capped table and into the 3-row table (hot
+               rows).  (c) graphsage-reddit's CONFIG at ``minibatch_lg``:
+               ``sample_fanout`` of 1,024 seeds at fanouts (15, 10) on a
+               generated graph of degree >= 16 everywhere (169,984 nodes,
+               168,960 edges; Reddit itself is not in the repository), 6
+               AdamW steps as in (b).  (d) gatedgcn's CONFIG at
+               ``full_graph_sm`` and (e) dimenet's and equiformer-v2's at
+               ``molecule`` (128 graphs of 30 atoms, triplets at the
+               reference's budget), 3 steps each; each GNN run prints its
+               plans' host time a forward; ``ogb_products`` does not fit
+               one card (a gather of [123.7 M, 100] float32 alone is 49
+               GB).  Then ``segment_sum`` timed on graphsage's own plan.
+               (f) float32 card against CPU from one seed: DLRM's SMOKE,
+               each GNN's SMOKE on the smoke runner's graph, and
+               graphsage's CONFIG on a 64-seed sample: the loss within
+               1e-5 relative, every weight's gradient within 1e-4 of its
+               largest.
 
 Phases 4, 7, 12 and 13 reset each op's launch count just before its calls
 and read it just after (it must be > 0), then time the kernel, its plain
@@ -217,6 +251,25 @@ LM_TRAIN = dict(batch=4, seq=4096, steps=6, lr=3e-4)
 TRAIN_CHECK = dict(layers=2, batch=1, seq=640)
 MOE_TRAIN = dict(layers=2, batch=1, seq=4096)
 
+#: Phase 20: dlrm-mlperf training at the MLPerf widths with each table
+#: capped at ``row_cap`` rows (13,114,880 padded rows, 6.7 GB a float32
+#: copy) at RECSYS_SHAPES' ``train_batch`` (src/repro/configs/base.py:46).
+DLRM_TRAIN = dict(row_cap=2_000_000, batch=65_536, steps=6, lr=3e-4)
+#: Phase 20: the GNN shapes it trains at (src/repro/configs/base.py:33-44;
+#: ``ogb_products`` does not fit one card) and their steps; graphsage's
+#: sampled graph is ``fanout_graph``'s, at 1,024 seeds (minibatch_lg) and
+#: at ``check_seeds`` for the card-against-CPU check.
+GNN_SHAPES = dict(
+    full_graph_sm=dict(n_nodes=2708, n_edges=10556, d_feat=1433),
+    molecule=dict(n_nodes=3840, n_edges=8192, n_graphs=128),
+)
+GNN_TRAIN = dict(steps=6, short_steps=3, lr=3e-4, check_seeds=64)
+
+#: Phase 14's two-shard and ``--descent auto`` runs serve the first this
+#: many requests of the 192-request stream (its other runs, the whole
+#: stream); each is held request by request to a run of the whole stream.
+SERVE_CUT = 64
+
 #: RGG vertices of phase 17's NCCL run (world 1, p = 1).
 DIST_NCCL_N = 1 << 14
 #: RGG vertices of phase 17's reduce and rg runs held against the same
@@ -231,7 +284,11 @@ REPLACES = {
     "segment_sum": "src/repro/kernels/segment_coo/kernel.py:62",
     "wedge_intersect": "src/repro/kernels/wedge_intersect/kernel.py:43",
     "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:44",
+    # the port's own: the reference differentiates this jnp.take
+    "embedding_bag_backward": "src/repro/models/dlrm.py:84",
 }
+#: Kernels built into another kernel's library (by library name).
+SHARED_LIBRARY = {"embedding_bag_backward": "embedding_bag"}
 #: Keys the kernels line's ``segment_fused`` rows carry beside the common
 #: ones (``fused_at``): the CUDA-graph times and the bound over live slots.
 FUSED_EXTRA = ("graph_ms", "library_graph_ms", "live_bound_ms")
@@ -1025,6 +1082,111 @@ def embedding_bag_at_size(dev, seed: int, reps: int) -> dict:
                 out.update(t)
         del table
         torch.cuda.empty_cache()
+        if dtype == torch.float32:
+            out["backward"] = embedding_bag_bwd_at_size(dev, gen, reps)
+    return out
+
+
+def check_embedding_bag_bwd(got, cot, idx, wgt, n_rows: int,
+                            label: str) -> float:
+    """Backward kernel vs its plain version (both accumulate in float32 and
+    round once; the kernel's atomics and the plain ``index_add_`` add in
+    any order) on the rows the lookups touch, and no other row written.
+    Tolerance: float32, 1e-6 of each row's sum of |w g| (per column),
+    which at one or two lookups a row is 1e-6 of the entry and covers a
+    hot row's thousands of terms summed in another order; bfloat16, one
+    bfloat16 ulp of the largest entry (2^-7 of it) on top.  Returns the
+    max abs error."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_bwd_ref, live_rows,
+    )
+
+    rows, live = live_rows(idx, n_rows)
+    uniq, inv = torch.unique(rows[live], return_inverse=True)
+    want = embedding_bag_bwd_ref(cot, idx, wgt, n_rows, got.dtype)[uniq]
+    terms = (cot.float().abs()[:, None, :] * wgt.abs()[..., None])[live]
+    scale = torch.zeros((uniq.shape[0], cot.shape[1]), device=cot.device
+                        ).index_add_(0, inv, terms)
+    tol, what = 1e-6 * scale, "1e-6 sum|w g|"
+    if got.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.float().abs().max()
+        what += " + 2^-7 max|want|"
+    diff = (got[uniq].float() - want.float()).abs()
+    err = float(diff.max())
+    extra = int(torch.count_nonzero(got)) - int(torch.count_nonzero(
+        got[uniq]))
+    phase(label, f"max_abs_err={err:.3e} (tolerance {what}) over "
+                 f"{uniq.shape[0]} touched rows; nonzero entries off them: "
+                 f"{extra}")
+    if not bool((diff <= tol).all()) or extra:
+        fail(f"{label}: embedding_bag backward kernel outside its "
+             f"tolerance ({err}) or wrote {extra} entries off its rows")
+    return err
+
+
+def time_embedding_bag_bwd(label: str, cot, idx, wgt, n_rows: int,
+                           reps: int) -> dict:
+    """The backward kernel on one case: checked against its plain version,
+    then timed (CUDA events) adding into a buffer zeroed once outside the
+    timed window, beside the zero fill of a dense [V, D] float32 gradient
+    (the reference's semantics), its plain version (which allocates and
+    zeroes its own), ``index_add_`` of the weighted rows (computed before
+    the timed window) into the same buffer, and the bound.  Launch counts
+    here are the check's, not a path's."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import kernel as EK
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_bwd_ref, live_rows,
+    )
+
+    d = cot.shape[1]
+    buf = EK.embedding_bag_bwd(cot, idx, wgt, n_rows)
+    err = check_embedding_bag_bwd(buf, cot, idx, wgt, n_rows, label)
+    rows, live = live_rows(idx, n_rows)
+    rows_l = rows[live]
+    weighted = (cot.float()[:, None, :] * wgt[..., None])[live]
+    touched = int(torch.unique(rows_l).shape[0])
+    zero_ms = cuda_ms(lambda: buf.zero_(), max(reps // 4, 2), warmup=1)
+    t = timings(label, lambda: EK.embedding_bag_bwd(cot, idx, wgt, n_rows,
+                                                    out=buf),
+                lambda: embedding_bag_bwd_ref(cot, idx, wgt, n_rows,
+                                              torch.float32),
+                lambda: buf.index_add_(0, rows_l, weighted), reps,
+                # least bytes: grad_out once, idx and wgt, each touched
+                # row of the buffer read and written once; ops: one FMA a
+                # live element
+                cot.numel() * cot.element_size() + idx.numel() * 8
+                + 2 * touched * d * 4, int(live.sum()) * d, "fp32_fma")
+    phase(label, f"zero fill of the dense [{n_rows}, {d}] float32 gradient "
+                 f"zero_ms={zero_ms:.5f} (outside the kernel's window); "
+                 f"touched rows {touched}; library: index_add_ of the "
+                 f"weighted rows (product made before the window)")
+    del buf, weighted
+    torch.cuda.empty_cache()
+    return dict(t, zero_ms=zero_ms, max_abs_err=err)
+
+
+def embedding_bag_bwd_at_size(dev, gen, reps: int) -> dict:
+    """Phase 13's backward: the table's gradient at dlrm-mlperf's largest
+    table (V 39,979,771, D 128) and ``serve_bulk``'s B 262,144, K 1 and 4,
+    float32, uniform ids and weights and a random cotangent from the seed
+    (row 4b of the kernel table).  Returns K 1's timings."""
+    import torch
+
+    V, D, B = (EMBEDDING_BAG_SIZE[k] for k in "VDB")
+    out = {}
+    for k_bag in EMBEDDING_BAG_SIZE["bags"]:
+        idx = torch.randint(0, V, (B, k_bag), generator=gen, device=dev,
+                            dtype=torch.int32)
+        wgt = torch.randn((B, k_bag), generator=gen, device=dev)
+        cot = torch.randn((B, D), generator=gen, device=dev)
+        t = time_embedding_bag_bwd(f"embedding_bag_bwd-size K={k_bag} "
+                                   f"float32", cot, idx, wgt, V, reps)
+        if k_bag == EMBEDDING_BAG_SIZE["bags"][0]:
+            out = t
     return out
 
 
@@ -1154,7 +1316,7 @@ def serve_pipeline(opts, rg: dict) -> list:
     try:
         two = serve_run(opts, "rg cuda, two shards on one card (no speed "
                         "read)", True, algo="rg", backend="cuda",
-                        requests=192, verify="full", devices=2)
+                        requests=SERVE_CUT, verify="full", devices=2)
     finally:
         mesh.visible_devices = seam
     if {r["devices"] for r in two["service"]._stage_log} != {2}:
@@ -1174,7 +1336,7 @@ def serve_descent(opts, off: dict) -> dict:
     from repro_torch.graphs.generators import gnm
 
     dsc = serve_run(opts, "rg cuda descent=auto", True, algo="rg",
-                    backend="cuda", requests=192, verify="full",
+                    backend="cuda", requests=SERVE_CUT, verify="full",
                     descent="auto")
     for i, (a, b) in enumerate(zip(dsc["results"], off["results"])):
         if a.weight != b.weight or not np.array_equal(a.members, b.members):
@@ -1961,7 +2123,7 @@ def lm_train_at_width(dev, opts) -> None:
     from repro_torch.models import common as MC
     from repro_torch.models import transformer as TM
     from repro_torch.train import optimizer as opt
-    from repro_torch.train.step import lm_train_step
+    from repro_torch.train.step import train_step
 
     cfg = gemma3_1b.CONFIG
     B, T = LM_TRAIN["batch"], LM_TRAIN["seq"]
@@ -1995,8 +2157,8 @@ def lm_train_at_width(dev, opts) -> None:
     for i in range(LM_TRAIN["steps"]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, p2, o2 = lm_train_step(*state, batch, cfg, opt.adamw_update,
-                                     ocfg)
+        loss, p2, o2 = train_step(*state, batch, cfg, opt.adamw_update,
+                                  ocfg)
         state = (p2, o2)
         losses.append(float(loss))
         torch.cuda.synchronize()
@@ -2015,7 +2177,7 @@ def lm_train_at_width(dev, opts) -> None:
 
     def one():
         nonlocal state
-        _, p2, o2 = lm_train_step(*state, batch, cfg, opt.adamw_update, ocfg)
+        _, p2, o2 = train_step(*state, batch, cfg, opt.adamw_update, ocfg)
         state = (p2, o2)
 
     device_profile(f"gemma3-1b train step B={B} T={T}", one, top=15,
@@ -2092,7 +2254,7 @@ def moe_at_width(dev, opts) -> None:
     from repro_torch.models import common as MC
     from repro_torch.models import transformer as TM
     from repro_torch.train import optimizer as opt
-    from repro_torch.train.step import lm_train_step
+    from repro_torch.train.step import train_step
 
     cfg = dataclasses.replace(qwen3_moe_235b.CONFIG,
                               n_layers=MOE_TRAIN["layers"])
@@ -2136,8 +2298,8 @@ def moe_at_width(dev, opts) -> None:
     ostate = opt.adafactor_init(params)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loss, p2, _ = lm_train_step(params, ostate, batch, cfg,
-                                opt.adafactor_update, opt.AdafactorConfig())
+    loss, p2, _ = train_step(params, ostate, batch, cfg,
+                             opt.adafactor_update, opt.AdafactorConfig())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     if not np.isfinite(float(loss)) or not all(
@@ -2172,13 +2334,550 @@ def train_phase(dev, opts) -> None:
                    f"({', '.join(parts)})")
 
 
+def arch_smokes(dev) -> dict:
+    """Phase 20 (a): ``configs.dlrm_mlperf.smoke`` and each GNN config's
+    ``smoke`` on the card, launch counts reset just before and read just
+    after: ``embedding_bag`` forward and backward on DLRM's, ``segment_sum``
+    on the GNNs', and neither ``segment_fused`` nor ``wedge_intersect``.
+    Returns the launches by kernel."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import (
+        dimenet_cfg, dlrm_mlperf, equiformer_v2_cfg, gatedgcn_cfg,
+        graphsage_reddit,
+    )
+
+    total = {}
+    for mod, need in ((dlrm_mlperf, ("embedding_bag",
+                                     "embedding_bag_backward")),
+                      (graphsage_reddit, ("segment_sum",)),
+                      (gatedgcn_cfg, ("segment_sum",)),
+                      (dimenet_cfg, ("segment_sum",)),
+                      (equiformer_v2_cfg, ("segment_sum",))):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        mod.smoke(device=dev.type)
+        torch.cuda.synchronize()
+        n = launch_counts()
+        name = mod.__name__.rsplit(".", 1)[1]
+        phase("train-archs", f"smoke {name}: launches={n} "
+                             f"seconds={time.time() - t0:.2f}")
+        if any(n[k] <= 0 for k in need) or any(
+                v for k, v in n.items() if k not in need):
+            fail(f"train-archs: smoke {name} launched {n}; expected "
+                 f"{need} only")
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def train_steps(dev, label: str, module, cfg, params, batch, steps: int,
+                lr: float, falling: bool) -> dict:
+    """AdamW steps (``train.step.train_step``) on one batch, each timed on
+    the host clock to its synchronised end; every loss finite and, when
+    ``falling``, the last below the first; launch counts reset before the
+    first step and read after the last.  ``module`` is a model module
+    (``models.dlrm`` or one of ``models.gnn.*``: its ``MODEL`` and
+    ``loss_fn``).  Returns the losses, ms,
+    launches, peak memory and the state after the last step."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import train_step
+
+    cls = module.MODEL
+    ocfg = opt.AdamWConfig(lr=lr)
+    state = (params, opt.adamw_init(params))
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, ms, peaks = [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, p2, o2 = train_step(*state, batch, cfg, opt.adamw_update,
+                                  ocfg, model_cls=cls,
+                                  loss_fn=module.loss_fn)
+        state = (p2, o2)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated())
+        if not np.isfinite(losses[-1]):
+            fail(f"train-archs: {label} loss at step {i} is not finite")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if falling and not losses[-1] < losses[0]:
+        fail(f"train-archs: {label} loss did not fall: {losses}")
+    p50 = float(np.percentile(ms[1:5], 50))
+    phase("train-archs", f"{label}: {steps} AdamW steps (lr {lr}) losses="
+                         f"{losses}; step ms={ms}; p50_ms (steps 2-"
+                         f"{min(steps, 5)})={p50} max_memory_allocated="
+                         f"{peak / 1e9:.2f} GB (after each step "
+                         f"{[round(x / 1e9, 2) for x in peaks]}) "
+                         f"launches={counts} (host clock, each step "
+                         f"synchronised)")
+    return dict(losses=losses, ms=ms, p50=p50, launches=counts, peak=peak,
+                state=state, step=lambda s: train_step(
+                    *s, batch, cfg, opt.adamw_update, ocfg, model_cls=cls,
+                    loss_fn=module.loss_fn))
+
+
+def profile_step(label: str, run: dict) -> None:
+    """One more step of ``train_steps``' run under torch.profiler: busy
+    share, device time by kernel and by op."""
+    def one():
+        run["state"] = run["step"](run["state"])[1:]
+
+    device_profile(label, one, top=12)
+
+
+def dlrm_train_at_width(dev, opts) -> dict:
+    """Phase 20 (b): dlrm-mlperf at the MLPerf widths (embed 128, full
+    bottom and top MLPs), every table capped at ``DLRM_TRAIN['row_cap']``
+    rows, at ``train_batch``'s B: AdamW steps on one ``dlrm_batch``, one
+    more step profiled; then the backward kernel timed on the batch's ids
+    into the largest capped table and into the 3-row table (hot rows).
+    Returns the launches and the capped table's backward timings."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.data.pipeline import DLRMBatchSpec, dlrm_batch
+    from repro_torch.models import common as MC
+    from repro_torch.models import dlrm as DM
+
+    cap, B = DLRM_TRAIN["row_cap"], DLRM_TRAIN["batch"]
+    cfg = dataclasses.replace(dlrm_mlperf.CONFIG, vocabs=tuple(
+        min(v, cap) for v in DM.MLPERF_VOCABS))
+    specs = DM.param_specs(cfg)
+    rows = sum(s.shape[0] for s in specs["tables"].values())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(opts.seed)
+    # the steps own the weights: no other reference keeps the first ones
+    state = [MC.init_params(specs, gen, dev)]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in dlrm_batch(
+        DLRMBatchSpec(B, cfg.n_dense, cfg.n_sparse, cfg.vocabs,
+                      seed=opts.seed), 0).items()}
+    torch.cuda.synchronize()
+    gb = MC.count_params(specs) * 4 / 1e9
+    before = torch.cuda.memory_allocated()
+    phase("train-archs", f"dlrm-mlperf widths (embed {cfg.embed_dim}, bot "
+                         f"{cfg.bot_mlp}, top {(cfg.top_in,) + cfg.top_mlp})"
+                         f", tables capped at {cap} rows (a cut of scale): "
+                         f"{rows} rows, {gb:.2f} GB float32 a copy (weights, "
+                         f"grads, two AdamW moments, the update's new "
+                         f"weights and moments), B={B} (train_batch); set "
+                         f"up in {time.time() - t0:.2f}s; device memory "
+                         f"allocated {before / 1e9:.2f} GB")
+    run = train_steps(dev, f"dlrm train B={B}", DM, cfg, state.pop(),
+                      batch, DLRM_TRAIN["steps"], DLRM_TRAIN["lr"], True)
+    n = run["launches"]
+    per_step = cfg.n_sparse * DLRM_TRAIN["steps"]
+    if n != {**{k: 0 for k in n}, "embedding_bag": per_step,
+             "embedding_bag_backward": per_step}:
+        fail(f"train-archs: dlrm training launched {n}, expected "
+             f"{per_step} embedding_bag and embedding_bag_backward")
+    phase("train-archs", f"dlrm train B={B}: samples_per_s="
+                         f"{B / run['p50'] * 1e3}")
+    profile_step(f"dlrm train step B={B}", run)
+    del run
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(opts.seed + 1)
+    out, err = {}, 0.0
+    for t in (max(range(cfg.n_sparse), key=lambda i: cfg.vocabs[i]),
+              cfg.vocabs.index(3)):
+        v = specs["tables"][f"t{t}"].shape[0]
+        idx = batch["sparse"][:, t:t + 1].contiguous()
+        cot = torch.randn((B, cfg.embed_dim), generator=gen, device=dev)
+        res = time_embedding_bag_bwd(
+            f"embedding_bag_bwd dlrm table t{t} (V={v}) B={B} K=1 float32",
+            cot, idx, torch.ones((B, 1), device=dev), v, opts.reps)
+        out, err = out or res, max(err, res["max_abs_err"])
+    return dict(launches=n, capped=out, max_abs_err=err)
+
+
+def fanout_graph(seeds: int):
+    """A generated graph for ``seeds`` seed nodes at fanouts (15, 10),
+    degree >= 16 everywhere the sampler reaches: node ids 0 .. seeds - 1
+    are the seeds, each with 16 children (layer A); each A node has its
+    parent and 16 children (layer B); each B node its parent and the 16 B
+    nodes within 8 of it on a ring.  A seed's 15 samples are always new
+    nodes, so the sampled subgraph has minibatch_lg's 168,960 edges at
+    1,024 seeds (its nodes fall short of 169,984 where an A node samples
+    its parent).  Built row by row in CSR order (no sort of the edge
+    list).  Returns the graph and the seeds' ids."""
+    import numpy as np
+
+    from repro_torch.core.graph import Graph
+
+    k = SEGMENT_SUM_SIZE["fanouts"][0] + 1
+    n_a, n_b = seeds * k, seeds * k * k
+    a0, b0 = seeds, seeds + n_a
+    s_rows = a0 + np.arange(n_a).reshape(seeds, k)
+    a_rows = np.concatenate([(np.arange(n_a) // k)[:, None],
+                             b0 + np.arange(n_b).reshape(n_a, k)], 1)
+    j = np.arange(n_b)[:, None]
+    offs = np.concatenate([np.arange(-8, 0), np.arange(1, 9)])
+    b_rows = np.concatenate([(a0 + np.arange(n_b) // k)[:, None],
+                             b0 + np.sort((j + offs) % n_b, axis=1)], 1)
+    deg = np.concatenate([np.full(seeds, k), np.full(n_a, k + 1),
+                          np.full(n_b, 2 * 8 + 1)])
+    indptr = np.zeros(deg.shape[0] + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    g = Graph(indptr=indptr, indices=np.concatenate(
+        [s_rows.ravel(), a_rows.ravel(), b_rows.ravel()]).astype(np.int32),
+        weights=np.ones(deg.shape[0], dtype=np.int32))
+    return g, np.arange(seeds)
+
+
+def sampled_batch(dev, g, seeds, cfg, seed: int) -> dict:
+    """A graphsage batch from ``sample_fanout`` at the ``seeds`` node ids
+    and fanouts (15, 10), padded to the no-repeat layout's counts (seeds x
+    (1 + 15 + 150) nodes, seeds x 165 edges): node features and labels
+    drawn from the seed on ``dev``, the loss on the seeds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graphs.sampler import sample_fanout
+
+    fan = SEGMENT_SUM_SIZE["fanouts"]
+    n_seeds = len(seeds)
+    n_sub = n_seeds * (1 + fan[0] + fan[0] * fan[1])
+    e_sub = n_seeds * (fan[0] + fan[0] * fan[1])
+    sub = sample_fanout(g, seeds, fan, rng=np.random.default_rng(seed),
+                        pad_nodes=n_sub, pad_edges=e_sub)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.zeros(n_sub, device=dev)
+    mask[:n_seeds] = 1.0
+    return dict(
+        node_feat=torch.randn((n_sub, cfg.d_feat), generator=gen,
+                              device=dev),
+        row=torch.from_numpy(sub.row).to(dev),
+        col=torch.from_numpy(sub.col).to(dev),
+        labels=torch.randint(0, cfg.n_classes, (n_sub,), generator=gen,
+                             device=dev, dtype=torch.int32),
+        label_mask=mask, n_valid=sub.n_valid)
+
+
+def full_graph_batch(dev, cfg, shape: dict, seed: int) -> dict:
+    """A full-graph batch at a GNN shape's sizes, padded as the reference's
+    ``gnn_build`` pads (src/repro/configs/base.py:283-284): N =
+    pad_multiple(n_nodes) rows, E2 = pad_multiple(2 n_edges) slots; a
+    generated G(n, m) graph of ``n_edges`` undirected edges fills
+    2 n_edges of them, the rest are padding on the sentinel N."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graphs.generators import gnm
+
+    N, E2 = pad512(shape["n_nodes"]), pad512(2 * shape["n_edges"])
+    g = gnm(shape["n_nodes"], shape["n_edges"], seed=seed)
+    row = np.full(E2, N, np.int32)
+    col = np.full(E2, N, np.int32)
+    row[:g.num_directed_edges] = g.edge_sources()
+    col[:g.num_directed_edges] = g.indices
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return dict(
+        node_feat=torch.randn((N, cfg.d_feat), generator=gen, device=dev),
+        row=torch.from_numpy(row).to(dev), col=torch.from_numpy(col).to(dev),
+        labels=torch.randint(0, cfg.n_classes, (N,), generator=gen,
+                             device=dev, dtype=torch.int32),
+        label_mask=(torch.arange(N, device=dev) < shape["n_nodes"]).float())
+
+
+def molecule_batch(dev, shape: dict, seed: int) -> dict:
+    """``molecule``'s batch: n_graphs graphs of n_nodes / n_graphs atoms
+    (3-D positions ~ N(0, 1.5^2), inside the 5.0 cutoff), each with
+    2 n_edges / n_graphs directed edges (random distinct pairs, both
+    directions), E2 = pad_multiple(2 n_edges) slots; triplets from
+    ``build_triplets`` at the reference's budget min(8 E2, 2^24)
+    (src/repro/configs/base.py:308); energies drawn from the seed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graphs.sampler import build_triplets
+
+    G_, N = shape["n_graphs"], shape["n_nodes"]
+    per, pairs = N // G_, shape["n_edges"] // G_
+    E2 = pad512(2 * shape["n_edges"])
+    rng = np.random.default_rng(seed)
+    iu = np.stack(np.triu_indices(per, 1), 1)
+    rows, cols = [], []
+    for m in range(G_):
+        e = iu[rng.choice(iu.shape[0], pairs, replace=False)] + m * per
+        rows += [e[:, 0], e[:, 1]]
+        cols += [e[:, 1], e[:, 0]]
+    row = np.full(E2, N, np.int32)
+    col = np.full(E2, N, np.int32)
+    real = np.concatenate(rows).shape[0]
+    row[:real], col[:real] = np.concatenate(rows), np.concatenate(cols)
+    t0 = time.time()
+    tri = build_triplets(row, col, N, budget=min(8 * E2, 1 << 24))
+    phase("train-archs", f"molecule: {G_} graphs x {per} atoms, {real} "
+                         f"directed edges of {E2} slots, "
+                         f"{int((tri[:, 0] < E2).sum())} triplets of a "
+                         f"{tri.shape[0]} budget (build_triplets "
+                         f"{time.time() - t0:.2f}s on the host)")
+    return dict(
+        node_feat=torch.from_numpy(rng.normal(size=(N, 16)).astype(
+            np.float32)).to(dev),
+        pos=torch.from_numpy((1.5 * rng.normal(size=(N, 3))).astype(
+            np.float32)).to(dev),
+        row=torch.from_numpy(row).to(dev), col=torch.from_numpy(col).to(dev),
+        triplets=torch.from_numpy(tri).to(dev),
+        batch_id=torch.from_numpy(np.arange(N, dtype=np.int32) // per
+                                  ).to(dev),
+        energy=torch.from_numpy(rng.normal(size=G_).astype(np.float32)
+                                ).to(dev),
+        labels=torch.zeros(N, dtype=torch.int32, device=dev),
+        label_mask=torch.ones(N, device=dev), n_graphs=G_)
+
+
+def pad512(x: int) -> int:
+    """``configs/base.py``'s ``pad_multiple`` (512)."""
+    return (x + 511) // 512 * 512
+
+
+def gnn_train(dev, opts, label: str, module, cfg, batch: dict, steps: int,
+              falling: bool, profiled: bool) -> dict:
+    """A GNN's AdamW steps at a CONFIG's widths (``train_steps``), the
+    forward's plan building timed on its own (host packing of every
+    segment array, the host copy of the segments included)."""
+    import torch
+
+    from repro_torch.models import common as MC
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plans = module.plans(batch, cfg)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    flat = [p for v in plans.values()
+            for p in (v if isinstance(v, list) else [v])]
+    phase("train-archs", f"{label}: plans a forward: {len(flat)}, host "
+                         f"time {plan_ms:.2f} ms; (rows, E_BLK) "
+                         f"{[(p.n, p.lrow.shape[1]) for p in flat]}")
+    gen = torch.Generator(device=dev).manual_seed(opts.seed)
+    run = train_steps(dev, label, module, cfg,
+                      MC.init_params(module.param_specs(cfg), gen, dev),
+                      {k: v for k, v in batch.items() if k != "n_valid"},
+                      steps, GNN_TRAIN["lr"], falling)
+    if run["launches"]["segment_sum"] <= 0 or any(
+            v for k, v in run["launches"].items() if k != "segment_sum"):
+        fail(f"train-archs: {label} launched {run['launches']}")
+    if profiled:
+        profile_step(f"{label} train step", run)
+    return run
+
+
+def gnns_at_width(dev, opts) -> dict:
+    """Phase 20 (c)-(e): graphsage-reddit at ``minibatch_lg`` (the sampler
+    on a generated graph), gatedgcn at ``full_graph_sm``, dimenet and
+    equiformer-v2 at ``molecule`` (their CONFIGs, d_feat as the shape
+    gives it); then ``segment_sum`` timed on graphsage's real plan at its
+    first layer's payload.  Returns the launches and that timing."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import (
+        dimenet_cfg, equiformer_v2_cfg, gatedgcn_cfg, graphsage_reddit,
+    )
+    from repro_torch.kernels.segment_coo import kernel as K
+    from repro_torch.kernels.segment_coo.ops import segment_sum_plain
+
+    t0 = time.time()
+    g, seeds = fanout_graph(SEGMENT_SUM_SIZE["seeds"])
+    gs_cfg = graphsage_reddit.CONFIG
+    batch = sampled_batch(dev, g, seeds, gs_cfg, opts.seed)
+    phase("train-archs", f"graphsage-reddit minibatch_lg: generated graph "
+                         f"n={g.n} (min degree {int(g.degrees().min())}), "
+                         f"sample_fanout of {len(seeds)} "
+                         f"seeds at {SEGMENT_SUM_SIZE['fanouts']}: "
+                         f"{batch['n_valid']} real nodes of "
+                         f"{batch['node_feat'].shape[0]}, "
+                         f"{int((batch['row'] < batch['node_feat'].shape[0]).sum())}"
+                         f" edges of {batch['row'].shape[0]} "
+                         f"(host {time.time() - t0:.2f}s)")
+    launches = {}
+    runs = [("graphsage-reddit minibatch_lg", graphsage_reddit.module,
+             gs_cfg, batch, GNN_TRAIN["steps"], True, True)]
+    shape = GNN_SHAPES["full_graph_sm"]
+    gg_cfg = dataclasses.replace(gatedgcn_cfg.CONFIG,
+                                 d_feat=shape["d_feat"])
+    runs.append(("gatedgcn full_graph_sm", gatedgcn_cfg.module, gg_cfg,
+                 full_graph_batch(dev, gg_cfg, shape, opts.seed),
+                 GNN_TRAIN["short_steps"], False, False))
+    mol = molecule_batch(dev, GNN_SHAPES["molecule"], opts.seed)
+    for name, mod in (("dimenet", dimenet_cfg), ("equiformer-v2",
+                                                  equiformer_v2_cfg)):
+        runs.append((f"{name} molecule", mod.module, mod.CONFIG, mol,
+                     GNN_TRAIN["short_steps"], False, False))
+    for label, module, cfg, b, steps, falling, profiled in runs:
+        run = gnn_train(dev, opts, label, module, cfg, b, steps, falling,
+                        profiled)
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        del run
+        torch.cuda.empty_cache()
+    # segment_sum on graphsage's own plan: layer 1's payload hp[row]
+    plan = graphsage_reddit.module.plans(batch, gs_cfg)["col"]
+    n = batch["node_feat"].shape[0]
+    hp = torch.cat([batch["node_feat"], batch["node_feat"].new_zeros(
+        (1, gs_cfg.d_feat))])
+    data = hp[batch["row"].long()].contiguous()
+    got, _ = run_op("segment_sum", lambda: K.segment_sum(
+        data, plan.edge_perm, plan.lrow, n, r_blk=plan.r_blk))
+    check_segment_sum(got, data, plan.edge_perm, plan.lrow, n, plan.r_blk,
+                      "segment_sum graphsage plan")
+    live = (plan.lrow < plan.r_blk).sum()
+    t = timings("segment_sum graphsage plan", lambda: K.segment_sum(
+        data, plan.edge_perm, plan.lrow, n, r_blk=plan.r_blk),
+        lambda: segment_sum_plain(data, plan.edge_perm, plan.lrow, n,
+                                  r_blk=plan.r_blk), None, opts.reps,
+        4 * plan.lrow.numel() + 4 * int(live)
+        + 4 * gs_cfg.d_feat * (int(live) + n), int(live) * gs_cfg.d_feat,
+        "fp32_add")
+    phase("train-archs", f"segment_sum on graphsage's real plan (D "
+                         f"{gs_cfg.d_feat} float32, {int(live)} live of "
+                         f"{plan.lrow.numel()} slots): kernel_ms="
+                         f"{t['ms']:.5f} beside phase 12's layout")
+    return dict(launches=launches, graphsage_plan=t)
+
+
+def train_archs_card_vs_cpu(dev, opts) -> None:
+    """Phase 20 (f): float32 (no TF32), one seed: DLRM's SMOKE, each GNN's
+    SMOKE on the smoke runner's graph (equiformer's act_dtype float32; the
+    molecular ones against energies of 1, so that the gradients are not
+    scaled by the init's ~1e-6 energies), and
+    graphsage-reddit's CONFIG on a 64-seed sample, on the card and on the
+    CPU: the loss within 1e-5 relative and every weight's gradient within
+    1e-4 of its largest (a gradient that is exactly 0, as equiformer's
+    w_att_dst's, within 1e-6 of the model's largest)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import (
+        dimenet_cfg, dlrm_mlperf, equiformer_v2_cfg, gatedgcn_cfg,
+        graphsage_reddit,
+    )
+    from repro_torch.configs.smoke_runners import (
+        dlrm_smoke_batches, gnn_smoke_batch,
+    )
+    from repro_torch.models import common as MC
+    from repro_torch.models import dlrm as DM
+    from repro_torch.train.step import loss_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [("dlrm-mlperf SMOKE", DM, dlrm_mlperf.SMOKE,
+              dlrm_smoke_batches(dlrm_mlperf.SMOKE)[0])]
+    for name, mod, mol, smp in (
+            ("graphsage-reddit", graphsage_reddit, False, True),
+            ("gatedgcn", gatedgcn_cfg, False, False),
+            ("dimenet", dimenet_cfg, True, False),
+            ("equiformer-v2", equiformer_v2_cfg, True, False)):
+        cfg = mod.SMOKE
+        if name == "equiformer-v2":
+            cfg = dataclasses.replace(cfg, act_dtype=torch.float32)
+        b = gnn_smoke_batch(cfg, molecular=mol, sampled=smp)
+        if mol:  # targets of 1: the init's energies are ~1e-6
+            b["energy"] = np.ones_like(b["energy"])
+        cases.append((f"{name} SMOKE", mod.module, cfg, b))
+    g, seeds = fanout_graph(GNN_TRAIN["check_seeds"])
+    sb = sampled_batch(torch.device("cpu"), g, seeds,
+                       graphsage_reddit.CONFIG, opts.seed + 1)
+    sb.pop("n_valid")
+    cases.append((f"graphsage-reddit CONFIG, {GNN_TRAIN['check_seeds']} "
+                  f"seeds", graphsage_reddit.module, graphsage_reddit.CONFIG,
+                  {k: v.numpy() for k, v in sb.items()}))
+    for label, module, cfg, batch in cases:
+        t0 = time.time()
+        cls = module.MODEL
+        params = MC.init_params(module.param_specs(cfg),
+                                torch.Generator().manual_seed(opts.seed),
+                                "cpu")
+        if module is DM:  # weights x 8: logits of order one
+            params = MC.nest({k: t * 8.0 for k, t in MC._leaves(params)})
+        res = {}
+        for where in ("cpu", dev):
+            tree = MC.nest({k: t.to(where) for k, t in MC._leaves(params)})
+            tb = {k: torch.from_numpy(v).to(where)
+                  if isinstance(v, np.ndarray) else v
+                  for k, v in batch.items()}
+            loss, grads = loss_and_grads(tree, tb, cfg, model_cls=cls,
+                                         loss_fn=module.loss_fn)
+            res[str(where)] = (float(loss), {k: v.cpu() for k, v in
+                                             MC._leaves(grads)})
+        (lc, gc), (lg, gg) = res["cpu"], res[str(dev)]
+        rel = abs(lg - lc) / abs(lc)
+        floor = 1e-6 * max(float(w.abs().max()) for w in gc.values())
+        worst = max((float((gg[k] - w).abs().max()
+                           / max(float(w.abs().max()), floor)), k)
+                    for k, w in gc.items())
+        phase("train-archs", f"card vs cpu {label}, float32: loss card "
+                             f"{lg} cpu {lc} (rel {rel:.3e}, tolerance "
+                             f"1e-5); worst gradient {worst[1]} "
+                             f"{worst[0]:.3e} of its largest (tolerance "
+                             f"1e-4) in {time.time() - t0:.1f}s")
+        if not rel <= 1e-5 or not worst[0] <= 1e-4:
+            fail(f"train-archs: {label}: the float32 loss or gradients on "
+                 f"the card != CPU")
+    torch.cuda.empty_cache()
+
+
+def train_archs_phase(dev, opts) -> dict:
+    """Phase 20 (see the module docstring); returns the launches by kernel
+    on its paths, the backward kernel's timings at the capped DLRM table
+    and ``segment_sum``'s on graphsage's plan."""
+    import torch
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    parts, launches = [], {}
+    t = time.time()
+    for k, v in arch_smokes(dev).items():
+        launches[k] = launches.get(k, 0) + v
+    parts.append(f"smokes {time.time() - t:.1f}s")
+    t = time.time()
+    dl = dlrm_train_at_width(dev, opts)
+    parts.append(f"dlrm {time.time() - t:.1f}s")
+    t = time.time()
+    gn = gnns_at_width(dev, opts)
+    parts.append(f"gnns {time.time() - t:.1f}s")
+    t = time.time()
+    train_archs_card_vs_cpu(dev, opts)
+    parts.append(f"card vs cpu {time.time() - t:.1f}s")
+    for counts in (dl["launches"], gn["launches"]):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    if launches.get("segment_fused") or launches.get("wedge_intersect"):
+        fail(f"train-archs: segment_fused or wedge_intersect launched on "
+             f"the training paths: {launches}")
+    phase("train-archs", f"launches on the training paths: {launches}; "
+                         f"phase seconds={time.time() - t0:.1f} "
+                         f"({', '.join(parts)})")
+    return dict(launches=launches, dlrm_bwd=dl["capped"],
+                bwd_err=dl["max_abs_err"],
+                graphsage_plan=gn["graphsage_plan"])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1 << 20,
                     help="RGG vertices of the main-path instance")
     ap.add_argument("--rnp-n", type=int, default=1 << 15,
                     help="RGG vertices of the reduce-and-peel run")
-    ap.add_argument("--dist-rnp-n", type=int, default=1 << 11,
+    ap.add_argument("--dist-rnp-n", type=int, default=1 << 10,
                     help="RGG vertices of phase 17's rnp runs")
     ap.add_argument("--p", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
@@ -2219,8 +2918,8 @@ def main() -> None:
     from repro_torch.launch import mwis_run
 
     libs = {**K.LIBS, **WK.LIBS, **EK.LIBS}
-    if set(libs) != set(REPLACES):
-        fail(f"kernels {sorted(libs)} != the four of REPLACES")
+    if set(libs) != set(REPLACES) - set(SHARED_LIBRARY):
+        fail(f"kernel libraries {sorted(libs)} != the four of REPLACES")
     t0 = time.time()
     kernels.build_many(list(libs.values()))
     phase("build", f"{', '.join(libs)} built (in parallel) "
@@ -2290,6 +2989,12 @@ def main() -> None:
     xk = dist_phase(base, g, pg, red_snap, rg_snap, opts)
     efull["launches"] += models_phase(dev, opts)
     train_phase(dev, opts)
+    ta = train_archs_phase(dev, opts)
+    efull["launches"] += ta["launches"].get("embedding_bag", 0)
+    sfull["launches"] += ta["launches"].get("segment_sum", 0)
+    bwd = efull.pop("backward")
+    bwd.update(launches=ta["launches"]["embedding_bag_backward"],
+               max_abs_err=max(bwd["max_abs_err"], ta["bwd_err"]))
 
     kfull.update(launches=launches,
                  max_abs_err=max(err, kfull["max_abs_err"]))
@@ -2299,15 +3004,18 @@ def main() -> None:
         full["max_abs_err"] = max(full["max_abs_err"],
                                   rec[name]["max_abs_err"])
     found = dict(segment_fused=kfull, segment_sum=sfull,
-                 wedge_intersect=wfull, embedding_bag=efull)
+                 wedge_intersect=wfull, embedding_bag=efull,
+                 embedding_bag_backward=bwd)
     rows = [dict(
         name=name, route="cuda",
-        source=str(sources[0].relative_to(ROOT)), replaces=REPLACES[name],
+        source=str(libs[SHARED_LIBRARY.get(name, name)][1][0]
+                   .relative_to(ROOT)),
+        replaces=REPLACES[name],
         **{key: found[name][key] for key in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms",
             *(FUSED_EXTRA if name == "segment_fused" else ()))},
-    ) for name, (_, sources) in libs.items()]
+    ) for name in REPLACES]
     rows.append(fused_row("segment_fused_batched", sk))
     rows.append(fused_row("segment_fused_last_rung", dk))
     rows.append(fused_row("segment_fused_dist", xk))

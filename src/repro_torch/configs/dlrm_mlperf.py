@@ -2,8 +2,9 @@
 embed_dim 128, bot 13-512-256-128, top 1024-1024-512-256-1, dot interaction.
 [arXiv:1906.00091; paper]
 
-The port's copy of ``repro/configs/dlrm_mlperf.py``'s ``CONFIG`` and
-``SMOKE`` (its dry-run ``ARCH`` waits with ``launch/dryrun.py``).
+The port's copy of ``repro/configs/dlrm_mlperf.py``'s ``CONFIG``,
+``SMOKE`` and ``smoke`` (its dry-run ``ARCH`` waits with
+``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -22,3 +23,9 @@ SMOKE = dataclasses.replace(
     bot_mlp=(13, 32, 16),
     top_mlp=(64, 32, 1),
 )
+
+
+def smoke(device: str = "cuda") -> None:
+    from repro_torch.configs.smoke_runners import dlrm_smoke
+
+    dlrm_smoke(SMOKE, device=device)

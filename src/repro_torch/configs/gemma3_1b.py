@@ -2,9 +2,10 @@
 vocab=262144, 5:1 local:global interleave (sliding window 512), 128k ctx.
 [hf:google/gemma-3-1b-pt; unverified]
 
-The port's copy of ``repro/configs/gemma3_1b.py``'s ``CONFIG`` and
-``SMOKE``.  Like the reference's ``TransformerConfig``, it models neither
-gemma3's embedding scale nor its post-norms.
+The port's copy of ``repro/configs/gemma3_1b.py``'s ``CONFIG``,
+``SMOKE`` and ``smoke`` (its dry-run ``ARCH`` waits with
+``configs/base.py``).  Like the reference's ``TransformerConfig``, it
+models neither gemma3's embedding scale nor its post-norms.
 """
 
 from __future__ import annotations
@@ -25,3 +26,9 @@ SMOKE = dataclasses.replace(
     d_ff=128, vocab=128, local_window=8, global_every=3, attn_chunk=16,
     loss_chunks=2,
 )
+
+
+def smoke(device: str = "cuda") -> None:
+    from repro_torch.configs.smoke_runners import lm_smoke
+
+    lm_smoke(SMOKE, device=device)

@@ -2,8 +2,8 @@
 MoE 8 experts top-2, vocab 131072.  [hf:xai-org/grok-1; unverified]
 
 The port's copy of ``repro/configs/grok1_314b.py``'s ``CONFIG`` and
-``SMOKE`` (its dry-run ``ARCH`` and ``smoke`` are objects of the
-reference's ``configs/base.py`` and are not carried).
+``SMOKE``, and its ``smoke`` (its dry-run ``ARCH`` is an object of the
+reference's ``configs/base.py`` and waits with it).
 """
 
 from __future__ import annotations
@@ -24,3 +24,9 @@ SMOKE = dataclasses.replace(
     d_ff=96, vocab=128, moe_experts=4, moe_top_k=2, attn_chunk=32,
     loss_chunks=2,
 )
+
+
+def smoke(device: str = "cuda") -> None:
+    from repro_torch.configs.smoke_runners import lm_smoke
+
+    lm_smoke(SMOKE, device=device)

@@ -3,8 +3,8 @@ MoE 128 experts top-8 (expert d_ff=1536), vocab 151936, qk_norm.
 [hf:Qwen/Qwen3-235B-A22B family; verified tier: hf]
 
 The port's copy of ``repro/configs/qwen3_moe_235b.py``'s ``CONFIG`` and
-``SMOKE`` (its dry-run ``ARCH`` and ``smoke`` are objects of the
-reference's ``configs/base.py`` and are not carried).
+``SMOKE``, and its ``smoke`` (its dry-run ``ARCH`` is an object of the
+reference's ``configs/base.py`` and waits with it).
 """
 
 from __future__ import annotations
@@ -25,3 +25,9 @@ SMOKE = dataclasses.replace(
     d_ff=32, vocab=128, moe_experts=8, moe_top_k=2, attn_chunk=32,
     loss_chunks=2,
 )
+
+
+def smoke(device: str = "cuda") -> None:
+    from repro_torch.configs.smoke_runners import lm_smoke
+
+    lm_smoke(SMOKE, device=device)

@@ -34,21 +34,23 @@ def params(tree, device: torch.device | str = "cpu") -> dict:
     ``load_state_dict(..., strict=True)``.  bfloat16 arrays (``ml_dtypes``,
     which ``torch.from_numpy`` refuses) cross as their ``uint16`` bits."""
     out = {}
-
-    def walk(t, prefix):
-        for k, v in t.items():
-            if isinstance(v, dict):
-                walk(v, f"{prefix}{k}.")
-                continue
-            a = np.asarray(v)
-            if a.dtype.name == "bfloat16":
-                out[prefix + k] = torch.from_numpy(
-                    a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
-            else:
-                out[prefix + k] = tensor(a, device)
-
-    walk(tree, "")
+    _params_into(out, tree, "", device)
     return out
+
+
+def _params_into(out: dict, t, prefix: str, device) -> None:
+    # not a recursive closure: that would be a reference cycle keeping
+    # ``out`` alive until the cyclic collector ran
+    for k, v in t.items():
+        if isinstance(v, dict):
+            _params_into(out, v, f"{prefix}{k}.", device)
+            continue
+        a = np.asarray(v)
+        if a.dtype.name == "bfloat16":
+            out[prefix + k] = torch.from_numpy(
+                a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+        else:
+            out[prefix + k] = tensor(a, device)
 
 
 def opt_state(src, device: torch.device | str = "cpu"):

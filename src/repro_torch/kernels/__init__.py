@@ -40,7 +40,8 @@ NVCC_FLAGS = (
 )
 
 #: The kernels, by the names their launches are counted under.
-KERNELS = ("segment_fused", "segment_sum", "wedge_intersect", "embedding_bag")
+KERNELS = ("segment_fused", "segment_sum", "wedge_intersect", "embedding_bag",
+           "embedding_bag_backward")
 
 #: Launches of each kernel in this process, by kernel name.  The serving
 #: layer launches from several worker threads, so updates take the lock.

@@ -35,6 +35,26 @@
 // in flight per lane to cover the latency of random rows; the gathered
 // [B, K, D] rows of the plain version are never written; the weighted sum
 // stays in registers.
+//
+// The backward (embedding_bag_bwd_launch) is the port's own: the reference
+// has no backward kernel, JAX differentiates jnp.take.  It computes the
+// table's gradient
+//     grad[r, :] += wgt[b, k] * grad_out[b, :]   for every live lookup,
+// into a zeroed float32 [V, D] buffer.  A lookup is live when its index,
+// wrapped once if negative, lies in [0, V): JAX's gather transposes to a
+// scatter that drops the cotangent of an index it clamped in the forward,
+// so an index out of range after the wrap adds nothing and its weight (NaN
+// in DLRM's lookup) is never read.  Layout: one thread per (bag, column
+// vector of 4 floats, or 1 where the row or a pointer is not aligned), so
+// a warp reads grad_out[b] coalesced; a thread loads its vector once and
+// adds w * g into each of its bag's K rows, one vector atomicAdd (float4,
+// global memory, sm_90) a lookup.  Atomics add in any order, so the sums
+// agree with the plain version within float32 rounding, not bit for bit.
+// Lookups of one row serialise on its addresses (DLRM's tables of 3 to 14
+// rows take every bag of a batch on a handful of rows).
+// Bound: bytes.  It must read grad_out once, idx and wgt once, and read
+// and write each touched row of the buffer once; one float32 FMA per
+// element of each live lookup.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -194,7 +214,84 @@ int launch(const void* table, const void* idx, const void* wgt, void* out,
   return (int)cudaGetLastError();
 }
 
+constexpr int kBwdThreads = 256;  // threads a block of the backward
+
+// grad[row, c*VEC ...] += v[0..VEC-1]: one float4 atomic on sm_90.
+template <int VEC>
+__device__ __forceinline__ void add_vec(float* dst, const float* v) {
+  if constexpr (VEC == 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) atomicAdd(dst + i, v[i]);
+  }
+}
+
+// Thread t owns bag t / n_vec and its column vector t % n_vec.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kBwdThreads) embedding_bag_bwd(
+    const T* __restrict__ grad_out, const int* __restrict__ idx,
+    const float* __restrict__ wgt, float* __restrict__ grad,
+    long long n_items, int k_bag, int n_vec, int n_rows) {
+  const long long t = (long long)blockIdx.x * kBwdThreads + threadIdx.x;
+  if (t >= n_items) return;
+  const long long b = t / n_vec;
+  const int c = (int)(t - b * n_vec);
+  const Vec<T, VEC> x = reinterpret_cast<const Vec<T, VEC>*>(grad_out)[t];
+  float g[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) g[i] = to_f32(x.v[i]);
+  for (int k = 0; k < k_bag; ++k) {
+    int r = idx[b * k_bag + k];
+    if (r < 0) r += n_rows;
+    if (r < 0 || r >= n_rows) continue;  // dropped, as JAX's scatter does
+    const float w = wgt[b * k_bag + k];
+    float v[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = w * g[i];
+    add_vec<VEC>(grad + ((long long)r * n_vec + c) * VEC, v);
+  }
+}
+
+template <typename T, int VEC>
+int launch_bwd(const void* grad_out, const void* idx, const void* wgt,
+               void* grad, int n_bags, int k_bag, int d, int n_rows,
+               cudaStream_t stream) {
+  const int n_vec = d / VEC;
+  const long long n_items = (long long)n_bags * n_vec;
+  const unsigned blocks = (unsigned)((n_items + kBwdThreads - 1) / kBwdThreads);
+  embedding_bag_bwd<T, VEC><<<blocks, kBwdThreads, 0, stream>>>(
+      (const T*)grad_out, (const int*)idx, (const float*)wgt, (float*)grad,
+      n_items, k_bag, n_vec, n_rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The backward: add the table's gradient into `grad` ([n_rows, d] float32,
+// zeroed by the caller) on `stream` without synchronising; returns
+// cudaGetLastError().  dtype: 0 = float32, 1 = bfloat16 (grad_out).
+// vec4: d a multiple of 4, grad_out aligned to 4 elements and grad to 16
+// bytes; otherwise one element at a time.  n_bags, k_bag, d >= 1.
+extern "C" int embedding_bag_bwd_launch(
+    const void* grad_out, const void* idx, const void* wgt, void* grad,
+    int n_bags, int k_bag, int d, int n_rows, int dtype, int vec4,
+    void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0)
+    return vec4 ? launch_bwd<float, 4>(grad_out, idx, wgt, grad, n_bags,
+                                       k_bag, d, n_rows, s)
+                : launch_bwd<float, 1>(grad_out, idx, wgt, grad, n_bags,
+                                       k_bag, d, n_rows, s);
+  if (dtype == 1)
+    return vec4 ? launch_bwd<bf16, 4>(grad_out, idx, wgt, grad, n_bags,
+                                      k_bag, d, n_rows, s)
+                : launch_bwd<bf16, 1>(grad_out, idx, wgt, grad, n_bags,
+                                      k_bag, d, n_rows, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // Launch on `stream` without synchronising; returns cudaGetLastError().
 // dtype: 0 = float32, 1 = bfloat16 (table and out).  vec16: rows move as

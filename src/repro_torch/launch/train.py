@@ -35,7 +35,7 @@ from repro_torch.distributed.fault import TrainSupervisor
 from repro_torch.models import common as MC
 from repro_torch.models import transformer as TM
 from repro_torch.train import optimizer as opt
-from repro_torch.train.step import lm_train_step
+from repro_torch.train.step import train_step
 
 #: The LM archs' reduced configs, as the reference's ``smokes`` map.
 SMOKES = {
@@ -85,8 +85,8 @@ def main(argv=None) -> dict:
     def one(state, step):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in lm_batch(bspec, step).items()}
-        loss, p2, o2 = lm_train_step(state["params"], state["opt"], batch,
-                                     cfg, opt.adamw_update, ocfg)
+        loss, p2, o2 = train_step(state["params"], state["opt"], batch,
+                                  cfg, opt.adamw_update, ocfg)
         if step % 10 == 0:
             losses[step] = float(loss)
             print(f"step {step}: loss={losses[step]:.4f}", flush=True)

@@ -98,6 +98,20 @@ def register_tree(module: nn.Module, tree: ParamTree, *,
                 name, nn.Parameter(v, requires_grad=trainable))
 
 
+class TreeModel(nn.Module):
+    """A model's weights (a tree from :func:`init_params` or one to be
+    filled by ``load_state_dict``) and its config.  The parameters share
+    the tree's tensors; they take gradients when ``trainable``.  A model
+    module subclasses it and keeps its math in module-level functions that
+    take the module in place of the reference's parameter tree."""
+
+    def __init__(self, cfg: Any, params: ParamTree, *,
+                 trainable: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        register_tree(self, params, trainable=trainable)
+
+
 def nest(flat: Dict[str, Any]) -> ParamTree:
     """Dotted keys (a ``state_dict``, ``named_parameters``) → the nested
     tree they name: ``{"attn.wq": t}`` → ``{"attn": {"wq": t}}``."""
@@ -120,6 +134,26 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + gamma.float())).to(x.dtype)
+
+
+class _Relu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.relu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x > 0, g, 0)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.relu``: max(x, 0) (NaN stays NaN), and a gradient that is
+    ``g`` where x > 0 and 0 elsewhere, whatever ``g`` is.  torch.relu's
+    backward passes ``g`` where x is NaN, so a NaN row (DLRM's lookup of
+    an id out of range) would reach weights the reference keeps finite."""
+    return _Relu.apply(x)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

@@ -16,7 +16,10 @@ equals the reference's ``jnp.take`` bit for bit.
 reference's tree paths (``tables.t0``, ``bot_w0``, ``top_b4``);
 :func:`forward`, :func:`loss_fn`, :func:`serve_step` and
 :func:`retrieval_step` keep the reference's signatures, with the module
-in place of the parameter tree.  Tables are not row-sharded: one card
+in place of the parameter tree.  Built with ``trainable=True`` its
+weights take gradients: ``loss_fn`` runs under autograd, the tables'
+gradients through the ``embedding_bag`` op's backward (the backward
+kernel on CUDA tensors, one launch a table a step).  Tables are not row-sharded: one card
 holds them (the reference's partition specs have no meaning here), but
 their rows are padded as the reference pads them.
 """
@@ -27,7 +30,6 @@ import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
-from torch import nn
 
 from repro_torch.kernels.embedding_bag import ops as EB
 from repro_torch.models import common as C
@@ -86,17 +88,15 @@ def param_specs(cfg: DLRMConfig) -> Dict[str, Any]:
     return specs
 
 
-class DLRM(nn.Module):
-    """The model's weights (a tree from :func:`common.init_params` or one
-    to be filled by ``load_state_dict``) and its config."""
-
-    def __init__(self, cfg: DLRMConfig, params: C.ParamTree):
-        super().__init__()
-        self.cfg = cfg
-        C.register_tree(self, params)
+class DLRM(C.TreeModel):
+    """DLRM's weights and its config (``common.TreeModel``)."""
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return forward(self, batch, self.cfg)
+
+
+#: The family's module class (what ``train.step`` builds).
+MODEL = DLRM
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -105,7 +105,9 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     reference's ``jnp.take``: an id in [-V, -1] wraps (the op wraps it),
     and one outside [-V, V), V the padded ``table.shape[0]``, gives a NaN
     row, here by the weight NaN (NaN x any row); every other weight is
-    1.0, so in-range rows come back exact."""
+    1.0, so in-range rows come back exact.  The table's gradient is
+    ``take``'s: the op's backward drops such an id before it reads the
+    weight, so the NaN stays in the forward."""
     rows = idx.contiguous()[:, None]
     n = table.shape[0]
     wgt = torch.where((rows >= -n) & (rows < n), 1.0, float("nan"))
@@ -117,7 +119,7 @@ def _mlp(params: DLRM, prefix: str, x: torch.Tensor, n: int) -> torch.Tensor:
         x = x @ getattr(params, f"{prefix}_w{j}") \
             + getattr(params, f"{prefix}_b{j}")
         if j < n - 1:
-            x = torch.relu(x)
+            x = C.relu(x)
     return x
 
 
@@ -126,7 +128,7 @@ def forward(params: DLRM, batch: Dict[str, torch.Tensor],
     """batch: dense [B, 13] f32, sparse [B, 26] int32 → logits [B]."""
     dense, sparse = batch["dense"], batch["sparse"]
     d = _mlp(params, "bot", dense.to(cfg.dtype), len(cfg.bot_mlp) - 1)
-    d = torch.relu(d)                                     # [B, dim]
+    d = C.relu(d)                                     # [B, dim]
     embs = [
         embedding_bag(getattr(params.tables, f"t{i}"), sparse[:, i])
         for i in range(cfg.n_sparse)
@@ -162,7 +164,7 @@ def retrieval_step(params: DLRM, batch: Dict[str, torch.Tensor],
     from table 0 rows (the big item table); one batched matvec."""
     q_dense = batch["dense"]                      # [1, 13]
     d = _mlp(params, "bot", q_dense.to(cfg.dtype), len(cfg.bot_mlp) - 1)
-    d = torch.relu(d)                             # [1, dim]
+    d = C.relu(d)                             # [1, dim]
     cand = embedding_bag(params.tables.t0, batch["candidates"][0])
     scale = torch.sqrt(torch.tensor(float(cfg.embed_dim), device=d.device))
     return (cand @ d[0]) / scale                  # [n_candidates]

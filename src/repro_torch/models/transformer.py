@@ -132,16 +132,8 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
     return specs
 
 
-class Transformer(nn.Module):
-    """The model's weights (a tree from :func:`common.init_params` or one
-    to be filled by ``load_state_dict``) and its config.  The parameters
-    share the tree's tensors; they take gradients when ``trainable``."""
-
-    def __init__(self, cfg: TransformerConfig, params: C.ParamTree, *,
-                 trainable: bool = False):
-        super().__init__()
-        self.cfg = cfg
-        C.register_tree(self, params, trainable=trainable)
+class Transformer(C.TreeModel):
+    """The LM's weights and its config (``common.TreeModel``)."""
 
 
 # --------------------------------------------------------------------- #

@@ -31,17 +31,20 @@ def leaves(tree: Any) -> List[torch.Tensor]:
 def unflatten(template: Any, flat: List[Any]) -> Any:
     """Rebuild ``template``'s structure from ``flat`` (in :func:`leaves`
     order)."""
-    it = iter(flat)
+    return _rebuild(template, iter(flat))
 
-    def walk(t):
-        if isinstance(t, dict):
-            out = {k: walk(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(walk(v) for v in t)
-        return next(it)
 
-    return walk(template)
+def _rebuild(t: Any, it) -> Any:
+    # a module-level function, not a recursive closure: a closure that
+    # calls itself is a reference cycle, and its iterator would keep every
+    # leaf of ``flat`` alive until the cyclic collector ran (an optimizer
+    # step's old weights and moments, 20 GB for DLRM's capped tables)
+    if isinstance(t, dict):
+        out = {k: _rebuild(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_rebuild(v, it) for v in t)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:

@@ -2,7 +2,9 @@
 torch version (the int32 kernels exactly, the float ones at the tolerance
 stated beside them), the ``cuda`` backend's solve against the CPU run, and
 the models: DLRM through the ``embedding_bag`` kernel against its plain
-lookup (bit for bit) and LM decode against the CPU run.
+lookup (bit for bit), LM decode against the CPU run, and DLRM's and the
+GNNs' training steps (the ``embedding_bag`` backward kernel, the
+``segment_sum`` kernel) against the CPU run.
 
 Needs a CUDA card (marker ``gpu``); skips on a CPU-only machine.  On the
 card: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py``.
@@ -24,7 +26,9 @@ from repro_torch.core import solvers as S
 from repro_torch.graphs import generators as gen
 from repro_torch.kernels.embedding_bag import kernel as EK
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ref import (
+    embedding_bag_bwd_ref, embedding_bag_ref,
+)
 from repro_torch.kernels.segment_coo import kernel as K
 from repro_torch.kernels.segment_coo.ops import (
     pack_blocks, segment_fused_coo, segment_fused_plain, segment_sum_coo,
@@ -1006,3 +1010,159 @@ def test_adamw_step_on_cuda_matches_cpu(cuda):
             assert ((g.float() - w.float()).abs() <= ulp).all()
         else:
             torch.testing.assert_close(g, w, rtol=2e-6, atol=1e-7)
+
+
+def _bwd_case(cuda, V, B, K_, D, dtype, seed=7):
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, V, (B, K_), generator=gen, dtype=torch.int32)
+    wgt = torch.randn((B, K_), generator=gen)
+    cot = torch.randn((B, D), generator=gen).to(dtype)
+    return cot.to(cuda), idx.to(cuda), wgt.to(cuda)
+
+
+def _check_bwd(got, cot, idx, wgt, V, dtype):
+    """Kernel vs plain version (both accumulate in float32 and round once;
+    atomics and ``index_add_`` add in any order).  float32: within 1e-6 of
+    each row's Σ|w·g| (per column), which at one or two lookups a row is
+    1e-6 of the entry, and covers a hot row's thousands of terms summed
+    in another order; bfloat16: one bfloat16 ulp of the largest entry
+    (2^-7 of it) on top."""
+    want = embedding_bag_bwd_ref(cot, idx, wgt, V, dtype).float()
+    scale = embedding_bag_bwd_ref(cot.float().abs(), idx, wgt.abs(), V,
+                                  torch.float32)
+    tol = 1e-6 * scale
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.abs().max()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("V,B,K_,D", [
+    (100, 33, 4, 16), (64, 8, 1, 128), (500, 70, 7, 32), (100, 9, 3, 5),
+    (100_000, 8192, 4, 128), (3, 65_536, 1, 128), (4, 4096, 4, 16),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_backward_kernel_matches_plain(cuda, V, B, K_, D,
+                                                     dtype):
+    """The table's gradient through the op on the card: one launch of the
+    backward kernel, within the tolerance of ``_check_bwd``; D = 5 takes
+    the scalar path, V 3 and 4 are DLRM's hot rows (every bag on a
+    handful of rows)."""
+    cot, idx, wgt = _bwd_case(cuda, V, B, K_, D, dtype)
+    table = torch.zeros((V, D), dtype=dtype, device=cuda,
+                        requires_grad=True)
+    before = kernels.launch_count("embedding_bag_backward")
+    embedding_bag(table, idx, wgt).backward(cot)
+    torch.cuda.synchronize()
+    assert kernels.launch_count("embedding_bag_backward") == before + 1
+    _check_bwd(table.grad, cot, idx, wgt, V, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_backward_kernel_drops_out_of_range_ids(cuda, dtype):
+    """Ids V, V + 3, -1, -V and -V - 1 with NaN weights on the ones out of
+    range after the wrap (DLRM's lookup gives them NaN): the kernel drops
+    them before it reads the weight, so the gradient is finite and equals
+    the plain version's; -1 and -V add to rows V - 1 and 0."""
+    V, D = 300, 128
+    cot, idx, wgt = _bwd_case(cuda, V, 5, 3, D, dtype, seed=8)
+    idx[:, 0] = torch.tensor([V, V + 3, -1, -V, -V - 1], device=cuda)
+    wgt[[0, 1, 4], 0] = float("nan")
+    got = EK.embedding_bag_bwd(cot, idx, wgt, V)
+    assert bool(torch.isfinite(got).all())
+    _check_bwd(got.to(dtype), cot, idx, wgt, V, dtype)
+
+
+def test_embedding_bag_backward_adds_into_a_given_buffer(cuda):
+    """``out=``: the kernel adds into the buffer it is given (what the
+    chip script times without the zero fill)."""
+    cot, idx, wgt = _bwd_case(cuda, 50, 40, 2, 8, torch.float32)
+    first = EK.embedding_bag_bwd(cot, idx, wgt, 50)
+    twice = EK.embedding_bag_bwd(cot, idx, wgt, 50, out=first.clone())
+    torch.testing.assert_close(twice, 2 * first, rtol=1e-6, atol=1e-6)
+    with pytest.raises(TypeError, match="float32"):
+        EK.embedding_bag_bwd(cot, idx, wgt.double(), 50)
+
+
+def test_dlrm_train_step_on_cuda_matches_cpu(cuda, fp32_matmul):
+    """DLRM's SMOKE ``loss_fn`` under autograd on the card: 26 forward and
+    26 backward ``embedding_bag`` launches; the loss within 1e-5 relative
+    and every weight's gradient within 1e-4 of its largest of the CPU
+    run's."""
+    from repro_torch.configs.smoke_runners import dlrm_smoke_batches
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = dlrm_mlperf.SMOKE
+    params = MC.init_params(DM.param_specs(cfg),
+                            torch.Generator().manual_seed(0), "cpu")
+    params = MC.nest({n: t * 8.0 for n, t in MC._leaves(params)})
+    batch, _ = dlrm_smoke_batches(cfg)
+    res = {}
+    for dev in ("cpu", cuda):
+        before = {k: kernels.launch_count(k) for k in kernels.KERNELS}
+        tree = MC.nest({n: t.to(dev) for n, t in MC._leaves(params)})
+        loss, grads = loss_and_grads(
+            tree, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+            cfg, model_cls=DM.DLRM, loss_fn=DM.loss_fn)
+        torch.cuda.synchronize()
+        res[str(dev)] = (float(loss), {n: g.cpu() for n, g in
+                                       MC._leaves(grads)},
+                         {k: kernels.launch_count(k) - before[k]
+                          for k in kernels.KERNELS})
+    (lc, gc, nc), (lg, gg, ng) = res["cpu"], res[str(cuda)]
+    assert not any(nc.values())
+    assert ng == {**{k: 0 for k in ng}, "embedding_bag": 26,
+                  "embedding_bag_backward": 26}
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for k, w in gc.items():
+        assert (gg[k] - w).abs().max() <= 1e-4 * w.abs().max(), k
+
+
+@pytest.mark.parametrize("arch", ["graphsage", "gatedgcn", "dimenet",
+                                  "equiformer"])
+def test_gnn_step_on_cuda_matches_cpu(cuda, fp32_matmul, arch):
+    """Each GNN's SMOKE ``loss_fn`` under autograd on the smoke runner's
+    batch, float32 (equiformer's act_dtype too): ``segment_sum`` launches
+    on the card and no other kernel; the loss within 1e-5 relative and
+    every weight's gradient within 1e-4 of its largest of the CPU run's
+    (gradients exactly 0 held to 1e-6 of the model's largest)."""
+    from repro_torch.configs import (
+        dimenet_cfg, equiformer_v2_cfg, gatedgcn_cfg, graphsage_reddit,
+    )
+    from repro_torch.configs.smoke_runners import gnn_smoke_batch
+    from repro_torch.train.step import loss_and_grads
+
+    mod, molecular, sampled = {
+        "graphsage": (graphsage_reddit, False, True),
+        "gatedgcn": (gatedgcn_cfg, False, False),
+        "dimenet": (dimenet_cfg, True, False),
+        "equiformer": (equiformer_v2_cfg, True, False)}[arch]
+    cfg = mod.SMOKE
+    if arch == "equiformer":
+        cfg = dataclasses.replace(cfg, act_dtype=torch.float32)
+    params = MC.init_params(mod.module.param_specs(cfg),
+                            torch.Generator().manual_seed(0), "cpu")
+    batch = gnn_smoke_batch(cfg, molecular=molecular, sampled=sampled)
+    res = {}
+    for dev in ("cpu", cuda):
+        before = {k: kernels.launch_count(k) for k in kernels.KERNELS}
+        tree = MC.nest({n: t.to(dev) for n, t in MC._leaves(params)})
+        tb = {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+              else v for k, v in batch.items()}
+        loss, grads = loss_and_grads(tree, tb, cfg,
+                                     model_cls=mod.module.MODEL,
+                                     loss_fn=mod.module.loss_fn)
+        torch.cuda.synchronize()
+        res[str(dev)] = (float(loss), {n: g.cpu() for n, g in
+                                       MC._leaves(grads)},
+                         {k: kernels.launch_count(k) - before[k]
+                          for k in kernels.KERNELS})
+    (lc, gc, nc), (lg, gg, ng) = res["cpu"], res[str(cuda)]
+    assert not any(nc.values())
+    assert ng["segment_sum"] > 0
+    assert not any(v for k, v in ng.items() if k != "segment_sum")
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    floor = 1e-6 * max(float(w.abs().max()) for w in gc.values())
+    for k, w in gc.items():
+        assert (gg[k] - w).abs().max() <= 1e-4 * max(float(
+            w.abs().max()), floor), k

@@ -2,11 +2,12 @@
 solver with its checkpoint and fault harness, the serving layer (with
 descent on, pipelined, and sharded over four CPU devices), the DLRM and
 LM models with the data pipeline, the optimizers, the serving CLIs (every
-serving arch), the training CLI and the per-PE path's spawned ranks —
+serving arch), the training CLI, DLRM's and the GNNs' smoke train steps
+and the per-PE path's spawned ranks —
 loads neither JAX nor the reference package,
 an entry point without ``device=`` refuses to run when no GPU is visible,
 and CPU tensors never count as kernel launches — neither on the solver's
-or the service's path nor through the three kernel ops off it."""
+or the service's path nor through the kernel ops off it."""
 
 import os
 import subprocess
@@ -33,6 +34,9 @@ SCRIPT = textwrap.dedent("""
         FaultPlan, InjectedFault, remesh_plan, run_union_reduction,
     )
     from repro_torch.configs import dlrm_mlperf, gemma3_1b
+    from repro_torch.configs import (
+        dimenet_cfg, equiformer_v2_cfg, gatedgcn_cfg, graphsage_reddit,
+    )
     from repro_torch.data import pipeline as dp
     from repro_torch.graphs import generators as gen
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
@@ -147,9 +151,11 @@ SCRIPT = textwrap.dedent("""
     w, st = opt.adafactor_update({"w": torch.ones(3, 3)}, st, w,
                                  opt.AdafactorConfig())
     assert int(st.step) == 1 and float(w["w"][0, 0]) < 0
-    counts = tuple(kernels.launch_count(k) for k in (
-        "segment_fused", "segment_sum", "wedge_intersect", "embedding_bag"))
-    assert counts == (0, 0, 0, 0), counts
+    for smoke in (dlrm_mlperf, graphsage_reddit, gatedgcn_cfg, dimenet_cfg,
+                  equiformer_v2_cfg):
+        smoke.smoke(device="cpu")
+    counts = tuple(kernels.launch_count(k) for k in kernels.KERNELS)
+    assert counts == (0,) * len(kernels.KERNELS), counts
 
     for call in (lambda: S.solve(pg, "rnp", cfg),
                  lambda: S.solve_staged(g, 2, "rnp", dcfg, pg=pg),
@@ -160,7 +166,9 @@ SCRIPT = textwrap.dedent("""
                  lambda: serve_cli.main(["--arch", "dlrm-mlperf"]),
                  lambda: serve_cli.main(["--arch", "qwen3-32b"]),
                  lambda: train_cli.main(["--steps", "1", "--ckpt",
-                                         tempfile.mkdtemp()])):
+                                         tempfile.mkdtemp()]),
+                 lambda: dlrm_mlperf.smoke(),
+                 lambda: graphsage_reddit.smoke()):
         try:
             call()
         except RuntimeError as e:
