@@ -54,9 +54,10 @@ continues):
  13. embedding_bag at size — dlrm-mlperf's largest table (39,979,771 x 128)
                at ``serve_bulk`` B = 262,144, K = 1 and 4, float32 and then
                bfloat16; then the backward kernel (the table's gradient)
-               at the same size in float32, checked on the rows it
-               touches, timed adding into a buffer zeroed outside the
-               timed window, beside the zero fill of the dense [V, D]
+               at the same size in float32, K = 1 and 4 on uniform ids and
+               K = 1 on Zipf ids (a 1.05, from the seed), checked on the
+               rows it touches, timed adding into a buffer zeroed outside
+               the timed window, beside the zero fill of the dense [V, D]
                gradient, its plain version and ``index_add_``;
  14. serve   — ``repro_torch.launch.serve --arch mwis`` on the card: the
                reference's stream of 192 requests over the three serve
@@ -176,8 +177,8 @@ continues):
                ``dlrm_batch``, losses finite and falling, ms a step (p50
                of steps 2-5), samples a second, peak memory, one more step
                profiled; then the backward kernel timed on the batch's ids
-               into the largest capped table and into the 3-row table (hot
-               rows).  (c) graphsage-reddit's CONFIG at ``minibatch_lg``:
+               into the largest capped table and into each of the 8 tables
+               of 155 rows or fewer (hot rows).  (c) graphsage-reddit's CONFIG at ``minibatch_lg``:
                ``sample_fanout`` of 1,024 seeds at fanouts (15, 10) on a
                generated graph of degree >= 16 everywhere (169,984 nodes,
                168,960 edges; Reddit itself is not in the repository), 6
@@ -1083,7 +1084,8 @@ def embedding_bag_at_size(dev, seed: int, reps: int) -> dict:
         del table
         torch.cuda.empty_cache()
         if dtype == torch.float32:
-            out["backward"] = embedding_bag_bwd_at_size(dev, gen, reps)
+            out["backward"] = embedding_bag_bwd_at_size(dev, gen, seed,
+                                                        reps)
     return out
 
 
@@ -1130,7 +1132,9 @@ def time_embedding_bag_bwd(label: str, cot, idx, wgt, n_rows: int,
                            reps: int) -> dict:
     """The backward kernel on one case: checked against its plain version,
     then timed (CUDA events) adding into a buffer zeroed once outside the
-    timed window, beside the zero fill of a dense [V, D] float32 gradient
+    timed window, as wrapper calls and by CUDA-graph replay (``graph_ms``:
+    the card's time, where a short kernel takes less than the wrapper's
+    host cost), beside the zero fill of a dense [V, D] float32 gradient
     (the reference's semantics), its plain version (which allocates and
     zeroes its own), ``index_add_`` of the weighted rows (computed before
     the timed window) into the same buffer, and the bound.  Launch counts
@@ -1160,33 +1164,60 @@ def time_embedding_bag_bwd(label: str, cot, idx, wgt, n_rows: int,
                 # live element
                 cot.numel() * cot.element_size() + idx.numel() * 8
                 + 2 * touched * d * 4, int(live.sum()) * d, "fp32_fma")
-    phase(label, f"zero fill of the dense [{n_rows}, {d}] float32 gradient "
+    card = graph_ms(lambda: EK.embedding_bag_bwd(cot, idx, wgt, n_rows,
+                                                 out=buf), reps)
+    phase(label, f"card (CUDA-graph replay) graph_ms={card:.5f} "
+                 f"bound/graph={t['bound_ms'] / card:.4f}; zero fill of "
+                 f"the dense [{n_rows}, {d}] float32 gradient "
                  f"zero_ms={zero_ms:.5f} (outside the kernel's window); "
                  f"touched rows {touched}; library: index_add_ of the "
                  f"weighted rows (product made before the window)")
     del buf, weighted
     torch.cuda.empty_cache()
-    return dict(t, zero_ms=zero_ms, max_abs_err=err)
+    return dict(t, graph_ms=card, zero_ms=zero_ms, max_abs_err=err)
 
 
-def embedding_bag_bwd_at_size(dev, gen, reps: int) -> dict:
+def zipf_ids(shape: tuple, n_rows: int, alpha: float, seed: int):
+    """Int32 ids drawn from a Zipf law of exponent ``alpha`` truncated to
+    ``n_rows`` ranks (numpy's ``zipf``, draws above ``n_rows`` redrawn),
+    rank k on row k - 1: a few rows take most lookups, as in click logs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    out = np.empty(0, dtype=np.int64)
+    while out.size < n:
+        z = rng.zipf(alpha, 2 * (n - out.size))
+        out = np.concatenate([out, z[z <= n_rows]])
+    return (out[:n] - 1).astype(np.int32).reshape(shape)
+
+
+def embedding_bag_bwd_at_size(dev, gen, seed: int, reps: int) -> dict:
     """Phase 13's backward: the table's gradient at dlrm-mlperf's largest
-    table (V 39,979,771, D 128) and ``serve_bulk``'s B 262,144, K 1 and 4,
-    float32, uniform ids and weights and a random cotangent from the seed
-    (row 4b of the kernel table).  Returns K 1's timings."""
+    table (V 39,979,771, D 128) and ``serve_bulk``'s B 262,144, K 1 and 4
+    on uniform ids, then K 1 on Zipf ids (a 1.05, ``zipf_ids`` from the
+    seed), float32, weights and a random cotangent from the seed (row 4b
+    of the kernel table).  Returns uniform K 1's timings."""
     import torch
 
     V, D, B = (EMBEDDING_BAG_SIZE[k] for k in "VDB")
     out = {}
-    for k_bag in EMBEDDING_BAG_SIZE["bags"]:
-        idx = torch.randint(0, V, (B, k_bag), generator=gen, device=dev,
-                            dtype=torch.int32)
+    cases = [(k, "uniform") for k in EMBEDDING_BAG_SIZE["bags"]]
+    for k_bag, draw in cases + [(1, "zipf")]:
+        if draw == "zipf":
+            idx = torch.from_numpy(zipf_ids((B, 1), V, 1.05, seed)).to(dev)
+        else:
+            idx = torch.randint(0, V, (B, k_bag), generator=gen,
+                                device=dev, dtype=torch.int32)
         wgt = torch.randn((B, k_bag), generator=gen, device=dev)
         cot = torch.randn((B, D), generator=gen, device=dev)
         t = time_embedding_bag_bwd(f"embedding_bag_bwd-size K={k_bag} "
-                                   f"float32", cot, idx, wgt, V, reps)
-        if k_bag == EMBEDDING_BAG_SIZE["bags"][0]:
+                                   f"{draw} float32", cot, idx, wgt, V,
+                                   reps)
+        if (k_bag, draw) == cases[0]:
             out = t
+        else:
+            out["max_abs_err"] = max(out["max_abs_err"], t["max_abs_err"])
     return out
 
 
@@ -2442,8 +2473,9 @@ def dlrm_train_at_width(dev, opts) -> dict:
     bottom and top MLPs), every table capped at ``DLRM_TRAIN['row_cap']``
     rows, at ``train_batch``'s B: AdamW steps on one ``dlrm_batch``, one
     more step profiled; then the backward kernel timed on the batch's ids
-    into the largest capped table and into the 3-row table (hot rows).
-    Returns the launches and the capped table's backward timings."""
+    into the largest capped table and into each table of 155 rows or
+    fewer (8 of them: hot rows).  Returns the launches and the capped
+    table's backward timings."""
     import dataclasses
 
     import torch
@@ -2492,8 +2524,9 @@ def dlrm_train_at_width(dev, opts) -> dict:
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(opts.seed + 1)
     out, err = {}, 0.0
-    for t in (max(range(cfg.n_sparse), key=lambda i: cfg.vocabs[i]),
-              cfg.vocabs.index(3)):
+    small = sorted((t for t in range(cfg.n_sparse) if cfg.vocabs[t] <= 155),
+                   key=lambda i: cfg.vocabs[i])
+    for t in [max(range(cfg.n_sparse), key=lambda i: cfg.vocabs[i])] + small:
         v = specs["tables"][f"t{t}"].shape[0]
         idx = batch["sparse"][:, t:t + 1].contiguous()
         cot = torch.randn((B, cfg.embed_dim), generator=gen, device=dev)

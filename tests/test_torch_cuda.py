@@ -1012,11 +1012,26 @@ def test_adamw_step_on_cuda_matches_cpu(cuda):
             torch.testing.assert_close(g, w, rtol=2e-6, atol=1e-7)
 
 
-def _bwd_case(cuda, V, B, K_, D, dtype, seed=7):
+def _bwd_case(cuda, V, B, K_, D, dtype, seed=7, draw="uniform"):
+    """Ids by ``draw``: uniform in [0, V); ``one_row``, every lookup on row
+    V // 2; ``zipf``, numpy's Zipf (a 1.05) folded into [0, V); ``dropped``,
+    uniform in [-V - 3, V + 3), so each tile mixes ids out of range after
+    the wrap (weight NaN, as DLRM's lookup gives them) with live ids of the
+    same wrapped rows."""
     gen = torch.Generator().manual_seed(seed)
     idx = torch.randint(0, V, (B, K_), generator=gen, dtype=torch.int32)
     wgt = torch.randn((B, K_), generator=gen)
     cot = torch.randn((B, D), generator=gen).to(dtype)
+    if draw == "one_row":
+        idx.fill_(V // 2)
+    elif draw == "zipf":
+        z = np.random.default_rng(seed).zipf(1.05, (B, K_))
+        idx = torch.from_numpy((z - 1) % V).to(torch.int32)
+    elif draw == "dropped":
+        idx = torch.randint(-V - 3, V + 3, (B, K_), generator=gen,
+                            dtype=torch.int32)
+        wrapped = torch.where(idx < 0, idx + V, idx)
+        wgt[(wrapped < 0) | (wrapped >= V)] = float("nan")
     return cot.to(cuda), idx.to(cuda), wgt.to(cuda)
 
 
@@ -1037,18 +1052,30 @@ def _check_bwd(got, cot, idx, wgt, V, dtype):
     assert bool(((got.float() - want).abs() <= tol).all())
 
 
-@pytest.mark.parametrize("V,B,K_,D", [
-    (100, 33, 4, 16), (64, 8, 1, 128), (500, 70, 7, 32), (100, 9, 3, 5),
-    (100_000, 8192, 4, 128), (3, 65_536, 1, 128), (4, 4096, 4, 16),
+@pytest.mark.parametrize("V,B,K_,D,draw", [
+    (100, 33, 4, 16, "uniform"), (64, 8, 1, 128, "uniform"),
+    (500, 70, 7, 32, "uniform"), (100, 9, 3, 5, "uniform"),
+    (100_000, 8192, 4, 128, "uniform"), (3, 65_536, 1, 128, "uniform"),
+    (4, 4096, 4, 16, "uniform"), (3, 16_384, 4, 128, "uniform"),
+    (1000, 65_536, 1, 128, "one_row"), (100_000, 65_536, 1, 128, "zipf"),
+    (5, 4096, 2, 128, "dropped"), (3, 4096, 1, 5, "uniform"),
+    (50, 8192, 2, 256, "uniform"), (4, 4096, 2, 37, "zipf"),
+    (7, 1000, 1, 128, "uniform"), (7, 333, 3, 128, "uniform"),
+    (100, 8192, 4, 128, "uniform"),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_embedding_bag_backward_kernel_matches_plain(cuda, V, B, K_, D,
-                                                     dtype):
+                                                     draw, dtype):
     """The table's gradient through the op on the card: one launch of the
-    backward kernel, within the tolerance of ``_check_bwd``; D = 5 takes
-    the scalar path, V 3 and 4 are DLRM's hot rows (every bag on a
-    handful of rows)."""
-    cot, idx, wgt = _bwd_case(cuda, V, B, K_, D, dtype)
+    backward kernel, within the tolerance of ``_check_bwd``.  D 5 and 37
+    take the scalar path; D 256 and 37 span two column chunks of a block;
+    V 3 and 4 are DLRM's hot rows (every bag on a handful of rows; at K 4
+    a row repeats inside a bag); every lookup on one row; Zipf ids; ids
+    dropped after the wrap, NaN weights, beside live lookups of the same
+    wrapped rows; 1,000 and 999 lookups, not a multiple of the tile (at
+    K 3 a tile ends inside a bag); V 100 at K 4, more repeated rows in a
+    tile than it stages."""
+    cot, idx, wgt = _bwd_case(cuda, V, B, K_, D, dtype, draw=draw)
     table = torch.zeros((V, D), dtype=dtype, device=cuda,
                         requires_grad=True)
     before = kernels.launch_count("embedding_bag_backward")

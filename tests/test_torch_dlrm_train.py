@@ -76,25 +76,34 @@ def _bag_case(V, B, K, D, jdt, seed, ids=()):
     return table, idx, wgt, cot
 
 
+@pytest.mark.parametrize("V,B", [(37, 29), (3, 2048)])
 @pytest.mark.parametrize("K", [1, 4])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_embedding_bag_backward_matches_jax_grad(dtype, K):
+def test_embedding_bag_backward_matches_jax_grad(dtype, K, V, B):
     """The table's and the weights' gradients of Σ out · cot, with ids V,
     V+3, -1, -V and -V-1 among the lookups: JAX drops the cotangent of an
     id still out of range after the wrap (V, V+3, -V-1), so its row gets
     nothing from it; the weights' gradient reads the row the forward read
-    (wrap, then clamp)."""
+    (wrap, then clamp).  V 3 at B 2,048 puts every lookup on three rows
+    (DLRM's hot rows), and at K 4 a row appears more than once in a bag.
+    JAX's bfloat16 scatter rounds after every add, so a row of hundreds of
+    lookups drifts from the float32 sum rounded once that the port
+    computes (``embedding_bag``'s docstring): on hot rows a bfloat16 table
+    is held to JAX's gradient of the same values in float32, rounded to
+    bfloat16 once (the weights' gradient is the same either way)."""
     jdt, tdt, tol, wtol = DTYPES[dtype]
-    V, B, D = 37, 29, 16
+    D = 16
     table, idx, wgt, cot = _bag_case(V, B, K, D, jdt, seed=K,
                                      ids=(V, V + 3, -1, -V, -V - 1))
+    gdt = jnp.float32 if B > 100 * V else jdt
 
     def f(t, w):
         return (jref(t, jnp.asarray(idx), w).astype(jnp.float32)
                 * jnp.asarray(cot).astype(jnp.float32)).sum()
 
-    jg_t, jg_w = jax.grad(f, argnums=(0, 1))(jnp.asarray(table, jdt),
+    jg_t, jg_w = jax.grad(f, argnums=(0, 1))(jnp.asarray(table, gdt),
                                              jnp.asarray(wgt))
+    jg_t = jg_t.astype(jdt)
     tt = _t(table, tdt).requires_grad_()
     tw = torch.from_numpy(wgt).requires_grad_()
     out = embedding_bag(tt, torch.from_numpy(idx), tw)
