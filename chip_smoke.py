@@ -114,7 +114,11 @@ continues):
                its own; the two exchanges agree in every output at full
                size; the smaller runs equal the same four ranks on the
                CPU in every output, rounds included; members are
-               independent; every rank ran one round count.  Then one
+               independent; every rank ran one round count.  The same
+               spawn runs the dry-run's sweep-round probe (one sweep, one
+               heavy-vertex pass, one exchange; rg's config) on phase 5's
+               arrays, counted on each rank: its (w, status, offset) equal
+               the union path's first sweep-round.  Then one
                NCCL rank (p = 1, rg) equal to the union run; every rank
                launched ``segment_fused`` and no other kernel; then the
                kernel on rank 0's plan (its row of ``shard_map_arrays``)
@@ -151,9 +155,10 @@ continues):
                then ``--arch qwen3-moe-235b-a22b --steps 11``, every
                printed loss finite.  Then gemma3-1b at full width and
                depth (bfloat16, ~1.00 B parameters) at ``train_4k``'s seq
-               4,096 with the batch cut from 256 to 4: 6 AdamW steps (lr
-               3e-4) on one ``lm_batch``, each loss finite and the last
-               below the first, ms a step (p50 of steps 2-5), tokens a
+               4,096 with the batch cut from 256 to 4: 4 AdamW steps (lr
+               3e-4) on one ``lm_batch``, each loss finite
+               and the last below the first, ms a step (p50 of steps 2-4),
+               tokens a
                second, peak memory, and one more step under
                torch.profiler (busy share, device time by op, device ops
                a step).  Then the same widths at 2 layers in float32 (no
@@ -194,6 +199,24 @@ continues):
                graphsage's CONFIG on a 64-seed sample: the loss within
                1e-5 relative, every weight's gradient within 1e-4 of its
                largest.
+ 21. dryrun  — the dry-run (``repro_torch.launch.dryrun``, its work counter
+               ``analysis/count.py``).  gemma3-1b's SMOKE at ``train_4k``
+               (seq 64, batch 2), dlrm-mlperf's SMOKE at ``train_batch``
+               and graphsage's SMOKE at ``full_graph_sm``, each counted on
+               the card and on the CPU from the same inputs: FLOPs, bytes
+               and each kernel's units, operations and bytes equal, and on
+               the card each kernel's units equal to its launches.  Then
+               ``gemma3-1b × decode_32k`` and ``dlrm-mlperf × serve_p99``
+               at full width, probes and extrapolation as the CLI runs
+               them: flops, bytes, t_bound, bottleneck, run_s and roofline
+               fraction on the ``card`` mesh; phase 17's sweep-round probe
+               (run on its four gloo ranks: (w, status, offset) equal to
+               the union path's first sweep-round) as an MWIS record;
+               ``compress_int8_ef`` / ``topk_ef`` on CUDA tensors bit for
+               bit with the CPU; ``hierarchical_psum`` on 4 gloo ranks (2
+               pods x 2 data) on cuda:0 against a flat ``all_reduce``.
+               ``segment_fused``, ``segment_sum``, ``embedding_bag`` and
+               its backward must each have launched.
 
 Phases 4, 7, 12 and 13 reset each op's launch count just before its calls
 and read it just after (it must be > 0), then time the kernel, its plain
@@ -248,7 +271,7 @@ LM_CHECK = dict(layers=2, batch=2, seq=1024, start=1016, steps=4)
 #: Phase 19: gemma3-1b training at ``train_4k``'s seq with the batch cut
 #: from 256 to 4; the 2-layer float32 card-against-CPU check (T 640 so the
 #: 512-token window masks); qwen3-moe at full width cut to 2 layers.
-LM_TRAIN = dict(batch=4, seq=4096, steps=6, lr=3e-4)
+LM_TRAIN = dict(batch=4, seq=4096, steps=4, lr=3e-4)
 TRAIN_CHECK = dict(layers=2, batch=1, seq=640)
 MOE_TRAIN = dict(layers=2, batch=1, seq=4096)
 
@@ -265,6 +288,15 @@ GNN_SHAPES = dict(
     molecule=dict(n_nodes=3840, n_edges=8192, n_graphs=128),
 )
 GNN_TRAIN = dict(steps=6, short_steps=3, lr=3e-4, check_seeds=64)
+
+#: Phase 21: the dry-run's cells counted on the card and on the CPU in one
+#: process (SMOKE widths, inputs made on the CPU and copied to the card;
+#: the LM's seq and batch cut so its CPU run takes seconds) and its two
+#: full-width cells (``launch/dryrun.py``'s probes).
+DRYRUN_SMOKE = (("gemma3-1b", "train_4k", dict(seq=64, batch=2)),
+                ("dlrm-mlperf", "train_batch", {}),
+                ("graphsage-reddit", "full_graph_sm", {}))
+DRYRUN_FULL = (("gemma3-1b", "decode_32k"), ("dlrm-mlperf", "serve_p99"))
 
 #: Phase 14's two-shard and ``--descent auto`` runs serve the first this
 #: many requests of the 192-request stream (its other runs, the whole
@@ -425,7 +457,9 @@ def run_op(kernel: str, call):
 
 def bound(n_bytes: float, n_ops: float, op_class: str) -> tuple[float, str]:
     """Least time the card could take (ms) and what sets it: the bytes at
-    the HBM rate or the operations at their class's rate."""
+    the HBM rate or the operations at their class's rate.  A kernel's bytes
+    and operations are its formula's (``kernels/<name>/cost.py``), which
+    the dry-run's work counter records a call as."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_per_s = (LANES_PER_SM_CLOCK[op_class] * CARD["sms"]
                  * CARD["max_sm_hz"])
@@ -434,11 +468,12 @@ def bound(n_bytes: float, n_ops: float, op_class: str) -> tuple[float, str]:
     return max(bytes_ms, ops_ms), by
 
 
-def timings(label: str, kernel, plain, library, reps: int, n_bytes: float,
-            n_ops: float, op_class: str) -> dict:
+def timings(label: str, kernel, plain, library, reps: int, work) -> dict:
     """CUDA-event times of the kernel, its plain version and (where there
     is one) the single PyTorch call computing the same function, beside the
-    bound."""
+    bound of ``work`` (``kernels.Work``: the kernel's cost formula on the
+    call's arguments)."""
+    n_bytes, n_ops, op_class = work.bytes, work.ops, work.op_class
     out = dict(ms=cuda_ms(kernel, reps),
                plain_ms=cuda_ms(plain, max(reps // 4, 2), warmup=1),
                library_ms=None if library is None else cuda_ms(library, reps))
@@ -621,6 +656,7 @@ def wedge_at_full_size(res: dict, reps: int) -> dict:
     the timings on the initial state."""
     from repro_torch.core import rules as R
     from repro_torch.kernels.wedge_intersect import kernel as WK
+    from repro_torch.kernels.wedge_intersect.cost import wedge_intersect_work
     from repro_torch.kernels.wedge_intersect.ops import common_neighbor_stats
     from repro_torch.kernels.wedge_intersect.ref import (
         common_neighbor_stats_ref,
@@ -630,7 +666,6 @@ def wedge_at_full_size(res: dict, reps: int) -> dict:
     init = R.init_state(prob.w0, prob.is_local, prob.is_ghost)
     n_edges = aux.row.shape[0]
     n_vertices, d = aux.window.shape
-    merge_len = (aux.gid[aux.window.long()] >= 0).sum(1)
     out = dict(launches=0, max_abs_err=0)
     for label, st in (("initial", init), ("final", res["state"])):
         active = st.status == R.UNDECIDED
@@ -644,16 +679,9 @@ def wedge_at_full_size(res: dict, reps: int) -> dict:
         phase(tag, f"E={n_edges} V={n_vertices} D={d} "
                    f"active={int(active.sum())} "
                    f"sum_K={int(got[1].long().sum())}")
-        # least bytes: row, col and both outputs per edge; window,
-        # weights and activity per vertex.  Least operations: the windows
-        # are sorted with the nil padding last (``core/partition.py``), so
-        # a merge of W(row) and W(col) takes one int32 compare per real
-        # entry of the two, not the TPU kernel's D x D
         t = timings(tag, lambda: WK.wedge_intersect(*args),
                     lambda: common_neighbor_stats_ref(*args), None, reps,
-                    16 * n_edges + n_vertices * (4 * d + 5),
-                    int(merge_len[aux.row.long()].sum()
-                        + merge_len[aux.col.long()].sum()), "int32")
+                    wedge_intersect_work(*args))
         if label == "initial":
             out.update(t)
     return out
@@ -738,6 +766,9 @@ def fused_at(label: str, prob, kw: dict, reps: int) -> dict:
     import torch
 
     from repro_torch.kernels.segment_coo import kernel as K
+    from repro_torch.kernels.segment_coo.cost import (
+        segment_fused_live_bytes, segment_fused_work,
+    )
     from repro_torch.kernels.segment_coo.ops import segment_fused_plain
 
     plan, aux = prob.plan, prob.aux
@@ -777,10 +808,10 @@ def fused_at(label: str, prob, kw: dict, reps: int) -> dict:
     n_blocks = plan.lrow.numel() // e_blk
     live = int(((plan.lrow >= 0) & (plan.lrow < plan.r_blk)).sum())
     ext = plan.extent.long()
-    plan_bytes = 4 * (n_blocks * e_blk + live + n_edges * cols
-                      + total * cols)
-    live_bytes = 4 * (n_blocks + 2 * live + n_edges * cols + total * cols)
-    n_ops = live * cols  # int32 add / max / min / or
+    work = segment_fused_work(plan.edge_perm, plan.lrow, n_rows, **kw)
+    plan_bytes, n_ops = work.bytes, work.ops
+    live_bytes = segment_fused_live_bytes(plan.edge_perm, plan.lrow, n_rows,
+                                          **kw)
 
     def kernel():
         return K.segment_fused(plan.edge_perm, plan.lrow, n_rows, **kw)
@@ -969,6 +1000,7 @@ def segment_sum_at_size(dev, seed: int, reps: int) -> dict:
     import torch
 
     from repro_torch.kernels.segment_coo import kernel as K
+    from repro_torch.kernels.segment_coo.cost import segment_sum_work
     from repro_torch.kernels.segment_coo.ops import (
         pack_blocks, segment_sum_coo, segment_sum_plain,
     )
@@ -1012,18 +1044,12 @@ def segment_sum_at_size(dev, seed: int, reps: int) -> dict:
             phase(tag, f"index_add_ yardstick vs kernel max_abs_err="
                        f"{lib_err:.3e} (not a check: it adds in the data "
                        f"type by atomics)")
-            es = data.element_size()
-            # least bytes: lrow over every slot, edge_perm and the payload
-            # row of each edge (all live), the [n_rows, d] output; ops: one
-            # float32 add per payload element
             t = timings(tag, lambda: K.segment_sum(data, perm, lrow, n_rows,
                                                    r_blk=r_blk),
                         lambda: segment_sum_plain(data, perm, lrow, n_rows,
                                                   r_blk=r_blk),
-                        library, reps,
-                        4 * n_blocks * e_blk + 4 * n_edges
-                        + es * d * (n_edges + n_rows),
-                        n_edges * d, "fp32_add")
+                        library, reps, segment_sum_work(
+                            data, perm, lrow, n_rows, r_blk=r_blk))
             if d == SEGMENT_SUM_SIZE["widths"][0] and dtype == torch.float32:
                 out.update(t)
         del x32, data
@@ -1041,6 +1067,7 @@ def embedding_bag_at_size(dev, seed: int, reps: int) -> dict:
     import torch
 
     from repro_torch.kernels.embedding_bag import kernel as EK
+    from repro_torch.kernels.embedding_bag.cost import embedding_bag_work
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
@@ -1069,15 +1096,9 @@ def embedding_bag_at_size(dev, seed: int, reps: int) -> dict:
             phase(tag, f"F.embedding_bag yardstick vs kernel max_abs_err="
                        f"{lib_err:.3e} (not a check: its weights are in the "
                        f"table's type)")
-            es = table.element_size()
-            # least bytes: one table row, one index and one weight per
-            # lookup, one output row per bag; ops: one float32 FMA per
-            # looked-up element
             t = timings(tag, lambda: EK.embedding_bag(table, idx, wgt),
                         lambda: embedding_bag_ref(table, idx, wgt),
-                        library, reps,
-                        B * k_bag * (D * es + 8) + B * D * es,
-                        B * k_bag * D, "fp32_fma")
+                        library, reps, embedding_bag_work(table, idx, wgt))
             if (dtype == torch.float32
                     and k_bag == EMBEDDING_BAG_SIZE["bags"][0]):
                 out.update(t)
@@ -1142,6 +1163,7 @@ def time_embedding_bag_bwd(label: str, cot, idx, wgt, n_rows: int,
     import torch
 
     from repro_torch.kernels.embedding_bag import kernel as EK
+    from repro_torch.kernels.embedding_bag.cost import embedding_bag_bwd_work
     from repro_torch.kernels.embedding_bag.ref import (
         embedding_bag_bwd_ref, live_rows,
     )
@@ -1159,11 +1181,7 @@ def time_embedding_bag_bwd(label: str, cot, idx, wgt, n_rows: int,
                 lambda: embedding_bag_bwd_ref(cot, idx, wgt, n_rows,
                                               torch.float32),
                 lambda: buf.index_add_(0, rows_l, weighted), reps,
-                # least bytes: grad_out once, idx and wgt, each touched
-                # row of the buffer read and written once; ops: one FMA a
-                # live element
-                cot.numel() * cot.element_size() + idx.numel() * 8
-                + 2 * touched * d * 4, int(live.sum()) * d, "fp32_fma")
+                embedding_bag_bwd_work(cot, idx, wgt, n_rows))
     card = graph_ms(lambda: EK.embedding_bag_bwd(cot, idx, wgt, n_rows,
                                                  out=buf), reps)
     phase(label, f"card (CUDA-graph replay) graph_ms={card:.5f} "
@@ -1603,9 +1621,31 @@ def dist_launches(label: str, out: dict) -> int:
     return sum(fused)
 
 
-def dist_phase(base, g, pg, red_snap: dict, rg_snap: dict, opts) -> dict:
+def union_sweep_round(prob, cfg):
+    """The dry-run's sweep-round probe on the union path: one sweep of
+    ``cfg.schedule``, one heavy-vertex pass, one union exchange, from the
+    initial state."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import exchange as X
+    from repro_torch.core import rules as R
+
+    st = R.init_state(prob.w0, prob.is_local, prob.is_ghost)
+    st = E.sweep(st, prob.aux, schedule=cfg.schedule, backend=cfg.backend,
+                 plan=prob.plan)
+    if cfg.use_heavy:
+        st = R.rule_heavy_vertex(st, prob.aux, cfg.heavy_k)
+    st, _ = X.exchange_union(st, prob.aux, prob.halo, backend=cfg.backend,
+                             plan=prob.plan)
+    return st
+
+
+def dist_phase(base, g, pg, red_snap: dict, rg_snap: dict, uprob,
+               opts) -> dict:
     """Phase 17: the per-PE path (one spawned rank a PE) on the card; see
-    the module docstring.  Returns the kernel's record on rank 0's plan."""
+    the module docstring.  Returns the kernel's record on rank 0's plan,
+    with the dry-run's sweep-round probe on the same ranks (its outputs
+    held against ``uprob``, phase 5's union problem) under
+    ``sweep_probe``."""
     import numpy as np
     import torch
 
@@ -1644,7 +1684,10 @@ def dist_phase(base, g, pg, red_snap: dict, rg_snap: dict, opts) -> dict:
             (f"reduce a2a n={DIST_LOCAL_N}",
              mesh.PEJob("reduce", reduce_a2a, part=2), loc_snap),
             (f"rg allgather n={DIST_LOCAL_N}",
-             mesh.PEJob("rg", edges, part=2), None)]
+             mesh.PEJob("rg", edges, part=2), None),
+            # the dry-run's MWIS probe (launch/dryrun.py): one sweep-round
+            # at strong_128m's schedule and exchange on phase 5's arrays
+            ("sweep-round probe", mesh.PEJob("sweep", edges), None)]
     phase("dist", f"world {p}, gloo, every rank on cuda:0 (one card: NCCL "
                   f"refuses two ranks on one device, so NCCL at world > 1 "
                   f"is not run here); {len(jobs)} runs on one spawn")
@@ -1661,6 +1704,8 @@ def dist_phase(base, g, pg, red_snap: dict, rg_snap: dict, opts) -> dict:
         per_round = p * (board.B if job.cfg.exchange == "allgather"
                          else board.S) * 5
         launches += dist_launches(label, out)
+        if job.algo == "sweep":
+            continue
         if not (out["rounds"] == out["rounds"][0]).all():
             fail(f"dist {label}: the ranks ran different round counts")
         res = dict(out)
@@ -1686,11 +1731,11 @@ def dist_phase(base, g, pg, red_snap: dict, rg_snap: dict, opts) -> dict:
     # on the CPU (plain version) rank for rank: at these sizes the per-PE
     # rounds differ from the union's
     cpu_jobs = [(label, job._replace(part=job.part - 1))
-                for label, job, _ in jobs[3:]]
+                for label, job, _ in jobs[3:6]]
     cpu, cst = mesh.run_shard_map([pg4, pg5], [j for _, j in cpu_jobs],
                                   backend="gloo", device="cpu",
                                   directory=str(ROOT / "build"))
-    for (label, _), got, want in zip(cpu_jobs, outs[3:], cpu):
+    for (label, _), got, want in zip(cpu_jobs, outs[3:6], cpu):
         same_outputs(label, got, want, "the same ranks on the CPU")
     phase("dist", f"{', '.join(l for l, _ in cpu_jobs)}: every output and "
                   f"the rounds == the same four ranks on the CPU, bit for "
@@ -1725,8 +1770,47 @@ def dist_phase(base, g, pg, red_snap: dict, rg_snap: dict, opts) -> dict:
     rec = fused_at("dist-kernel rank 0", rank0,
                    fused_args(rank0, state, reduce_a2a.schedule), opts.reps)
     rec["launches"] = launches
+    rec["sweep_probe"] = sweep_probe_against_union(outs[-1], uprob, edges,
+                                                   pg)
     phase("dist", f"phase seconds={time.time() - t_phase:.1f} (four ranks "
                   f"share one card and the host: no multi-GPU time)")
+    return rec
+
+
+def sweep_probe_against_union(out: dict, uprob, cfg, pg) -> dict:
+    """The per-PE sweep-round probe's (w, status, offset) against the union
+    path's first sweep-round on the same instance: equal bit for bit (one
+    sweep from the initial state is the same per-PE work on both paths;
+    only later rounds see the per-PE path's rank-local flags).  Returns
+    the probe's count record (its ranks' summed), with the partition's
+    per-PE shape and the config."""
+    import numpy as np
+
+    from repro_torch.configs import base as cbase
+
+    rec = cbase.rank_counts(out)
+    st = union_sweep_round(uprob, cfg)
+    p = pg.p
+    want = dict(w=st.w.cpu().numpy().reshape(p, -1),
+                status=st.status.cpu().numpy().reshape(p, -1))
+    offset = int(np.int32(out["offset"].astype(np.int64).sum()))
+    bad = {k: int((out[k] != v).sum()) for k, v in want.items()}
+    line = (f"statuses differing {bad['status']}, weights differing "
+            f"{bad['w']} of {want['w'].size}; offset {offset} (union "
+            f"{int(st.offset)})")
+    if any(bad.values()) or offset != int(st.offset):
+        fail(f"dist sweep-round probe != the union path's first "
+             f"sweep-round: {line}")
+    phase("dist", f"sweep-round probe ({cfg.schedule}, {cfg.exchange}, "
+                  f"heavy_k {cfg.heavy_k}): w, status and offset == the union "
+                  f"path's first sweep + heavy-vertex pass + exchange, bit "
+                  f"for bit ({line}); counted on the ranks: flops "
+                  f"{rec['flops']} bytes {rec['bytes']} collectives "
+                  f"{rec['collectives']} kernels {rec['kernels']} run_s "
+                  f"{rec['run_s']:.4f} (slowest rank)")
+    rec["shape"] = {k: int(getattr(pg, k)) for k in "LEGBS"}
+    rec["pes"] = p
+    rec["cfg"] = f"{cfg.schedule}/{cfg.exchange}/{cfg.backend}"
     return rec
 
 
@@ -2199,9 +2283,9 @@ def lm_train_at_width(dev, opts) -> None:
     peak = torch.cuda.max_memory_allocated()
     if not losses[-1] < losses[0]:
         fail(f"train: gemma3-1b loss did not fall: {losses}")
-    p50 = float(np.percentile(ms[1:5], 50))
+    p50 = float(np.percentile(ms[1:], 50))
     phase("train", f"gemma3-1b train B={B} T={T}: losses={losses}; step "
-                   f"ms={ms}; p50_ms (steps 2-5)={p50} tok_per_s="
+                   f"ms={ms}; p50_ms (steps 2-{len(ms)})={p50} tok_per_s="
                    f"{B * T / p50 * 1e3} max_memory_allocated="
                    f"{peak / gb:.2f} GB (host clock, each step "
                    f"synchronised)")
@@ -2725,6 +2809,7 @@ def gnns_at_width(dev, opts) -> dict:
         dimenet_cfg, equiformer_v2_cfg, gatedgcn_cfg, graphsage_reddit,
     )
     from repro_torch.kernels.segment_coo import kernel as K
+    from repro_torch.kernels.segment_coo.cost import segment_sum_work
     from repro_torch.kernels.segment_coo.ops import segment_sum_plain
 
     t0 = time.time()
@@ -2776,9 +2861,8 @@ def gnns_at_width(dev, opts) -> dict:
         data, plan.edge_perm, plan.lrow, n, r_blk=plan.r_blk),
         lambda: segment_sum_plain(data, plan.edge_perm, plan.lrow, n,
                                   r_blk=plan.r_blk), None, opts.reps,
-        4 * plan.lrow.numel() + 4 * int(live)
-        + 4 * gs_cfg.d_feat * (int(live) + n), int(live) * gs_cfg.d_feat,
-        "fp32_add")
+        segment_sum_work(data, plan.edge_perm, plan.lrow, n,
+                         r_blk=plan.r_blk))
     phase("train-archs", f"segment_sum on graphsage's real plan (D "
                          f"{gs_cfg.d_feat} float32, {int(live)} live of "
                          f"{plan.lrow.numel()} slots): kernel_ms="
@@ -2904,6 +2988,213 @@ def train_archs_phase(dev, opts) -> dict:
                 graphsage_plan=gn["graphsage_plan"])
 
 
+def to_device(tree, dev):
+    """A copy of ``tree`` (tensors in dicts, lists and tuples, named ones
+    included) on ``dev``; other leaves as they are."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_device(v, dev) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, dev) for v in tree)
+    return tree
+
+
+def smoke_overrides(arch_id: str) -> dict:
+    """Every field of the arch's SMOKE config, as ``build`` overrides."""
+    import dataclasses
+    import importlib
+
+    mod = {"gemma3-1b": "gemma3_1b", "dlrm-mlperf": "dlrm_mlperf",
+           "graphsage-reddit": "graphsage_reddit"}[arch_id]
+    smoke = importlib.import_module(f"repro_torch.configs.{mod}").SMOKE
+    return {f.name: getattr(smoke, f.name)
+            for f in dataclasses.fields(smoke) if f.name != "name"}
+
+
+def count_card_and_cpu(dev, arch_id: str, shape: str, cut: dict,
+                       seed: int) -> dict:
+    """Phase 21: one SMOKE cell's step counted on the card and on the CPU
+    from the same inputs (made on the CPU): FLOPs, bytes, collectives and
+    each kernel's units, operations and bytes must be equal, and on the
+    card each kernel's units its launches.  Returns the card's launches."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.analysis import count
+    from repro_torch.configs import registry
+
+    built = registry.get(arch_id).build(shape, {**smoke_overrides(arch_id),
+                                                **cut})
+    inputs = built.make_inputs("cpu", seed)
+    card_inputs = to_device(inputs, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    _, card = count.measure(built.fn, card_inputs, dev)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    _, cpu = count.measure(built.fn, inputs, "cpu")
+    keys = ("flops", "bytes", "collectives", "kernels")
+    label = f"{arch_id} × {shape} SMOKE {cut or ''}".strip()
+    if any(card[k] != cpu[k] for k in keys):
+        diff = {op: (card["by_op"].get(op), cpu["by_op"].get(op))
+                for op in set(card["by_op"]) | set(cpu["by_op"])
+                if card["by_op"].get(op) != cpu["by_op"].get(op)}
+        fail(f"dryrun: {label}: the card's count != the CPU's: "
+             f"{ {k: (card[k], cpu[k]) for k in keys} }; ops "
+             f"[calls, flops, bytes] (card, cpu) that differ: {diff}")
+    units = {k: v["units"] for k, v in card["kernels"].items()}
+    if units != launches:
+        fail(f"dryrun: {label}: counted units {units} != launches "
+             f"{launches} on the card")
+    phase("dryrun", f"{label}: card == CPU: flops {card['flops']} bytes "
+                    f"{card['bytes']} kernels {card['kernels']} (card "
+                    f"launches {launches}); host<->card transfer bytes "
+                    f"{card['transfer_bytes']} on the card, "
+                    f"{cpu['transfer_bytes']} on the CPU; run_s card "
+                    f"{card['run_s']:.3f} cpu {cpu['run_s']:.3f}")
+    return launches
+
+
+def compression_card_and_cpu(dev, seed: int) -> None:
+    """Phase 21: ``compress_int8_ef`` (float32 and bfloat16 leaves) and
+    ``topk_ef`` (float32 leaves: bfloat16 magnitudes tie) on CUDA tensors,
+    three error-feedback steps, bit for bit with the same calls on the
+    CPU; then
+    ``hierarchical_psum`` on 4 gloo ranks (2 pods x 2 data) on cuda:0
+    against a flat ``all_reduce``: exact on integer-valued float32, within
+    float32 rounding (1e-6 of the sum of |x|) on normal data."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import compression as C
+    from repro_torch.launch import mesh
+    from repro_torch.train.optimizer import leaves
+
+    rng = np.random.default_rng(seed)
+    g_cpu = {"w": torch.from_numpy(rng.normal(size=(257, 33)).astype(
+                 np.float32)),
+             "b": torch.from_numpy(rng.normal(size=(129,)).astype(
+                 np.float32)).to(torch.bfloat16),
+             "n": {"x": torch.from_numpy(rng.normal(size=(5, 3)).astype(
+                 np.float32))}}
+    g_card = to_device(g_cpu, dev)
+
+    def bits(tree):
+        return [t.cpu().view(torch.int8 if t.dtype == torch.int8 else
+                             torch.int32 if t.element_size() == 4 else
+                             torch.int16) for t in leaves(tree)]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(bits(a), bits(b)))
+
+    for name, step in (("compress_int8_ef", C.compress_int8_ef),
+                       ("topk_ef", lambda g, ef: C.topk_ef(g, ef, 0.05))):
+        if name == "topk_ef":
+            # float32 leaves only: bfloat16 magnitudes tie, and the two
+            # devices' top-k may order ties differently
+            g_cpu = {k: v for k, v in g_cpu.items() if k != "b"}
+            g_card = to_device(g_cpu, dev)
+        ef_cpu, ef_card = C.ef_init(g_cpu), C.ef_init(g_card)
+        for i in range(3):
+            *out_cpu, ef_cpu = step(g_cpu, ef_cpu)
+            *out_card, ef_card = step(g_card, ef_card)
+            if not (same(out_card, out_cpu)
+                    and same(ef_card.residual, ef_cpu.residual)):
+                fail(f"dryrun: {name} step {i} on the card != the CPU")
+        phase("dryrun", f"{name}: 3 error-feedback steps on {dev} == the "
+                        f"CPU, bit for bit (outputs and residuals)")
+    xs = [rng.integers(-1000, 1000, (4, 37, 5)).astype(np.float32),
+          rng.normal(size=(4, 1000, 3)).astype(np.float32)]
+    outs = mesh.spawn_pes(C.psum_rank, 4, args=([(2, 2)], xs),
+                          backend="gloo", device=dev.type)
+    where = {str(mesh.pe_device(0, dev.type))}
+    for x, o in zip(xs, outs):
+        err = float(np.abs(o["hier"] - o["flat"]).max())
+        tol = 0.0 if x is xs[0] else 1e-6 * float(np.abs(x).sum(0).max())
+        if err > tol or set(o["device"]) != where:
+            fail(f"dryrun: hierarchical_psum != flat all_reduce ({err}, "
+                 f"devices {set(o['device'])})")
+        phase("dryrun", f"hierarchical_psum {x.shape[1:]} on 4 gloo ranks "
+                        f"(2 pods x 2 data) on {where}: max |hier - flat| = "
+                        f"{err} (tolerance {tol}); counted collectives of a "
+                        f"rank {o['coll'][0]}")
+
+
+def dryrun_phase(dev, opts, probe: dict) -> None:
+    """Phase 21 (the dry-run, ``launch/dryrun.py``): the SMOKE cells of
+    ``DRYRUN_SMOKE`` counted card against CPU; the two ``DRYRUN_FULL``
+    cells at full width on the card (probes and extrapolation as the
+    dry-run's CLI runs them), each record's flops, bytes, t_bound,
+    bottleneck, run_s and roofline fraction on the ``card`` mesh; the MWIS
+    sweep-round probe's record from phase 17's ranks; the compression
+    checks.  Every kernel of the dry-run's cells must have launched."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    launched = dict(segment_fused=probe["kernels"]["segment_fused"]["units"])
+    for arch_id, shape, cut in DRYRUN_SMOKE:
+        for k, v in count_card_and_cpu(dev, arch_id, shape, cut,
+                                       opts.seed).items():
+            launched[k] = launched.get(k, 0) + v
+    info = dryrun.device_info(dev)
+    for arch_id, shape in DRYRUN_FULL:
+        torch.cuda.synchronize()
+        before = launch_counts()
+        cell = dryrun.run_cell(arch_id, shape, dev, seed=opts.seed)
+        rec = dryrun.mesh_record(arch_id, shape, "card", cell, cell["total"],
+                                 info)
+        got = {k: v - before[k] for k, v in launch_counts().items()
+               if v - before[k]}
+        top = cell["probes"][0]["top_ops"]
+        units = {k: sum(p["kernels"].get(k, {}).get("units", 0)
+                        for p in cell["probes"]) for k in got}
+        if units != got:
+            fail(f"dryrun: {arch_id} × {shape}: counted units {units} != "
+                 f"launches {got}")
+        for k, v in got.items():
+            launched[k] = launched.get(k, 0) + v
+        phase("dryrun", f"{arch_id} × {shape} (card, "
+                        f"{info.get('nvidia_smi', dev.type)}): "
+                        f"{dryrun.summary_line(rec)}; probes "
+                        f"{[(p['tag'], round(p['run_s'], 3))
+                            for p in cell['probes']]}"
+                        f"; kernels {rec['kernels']}; memory {rec['memory']}; "
+                        f"model_flops {cell['model_flops']:.6e}; top ops of "
+                        f"probe {cell['probes'][0]['tag']} [calls, flops, "
+                        f"bytes]: "
+                        f"{dict(list(top.items())[:6])}"
+                        f"; note: {rec['note']}")
+        torch.cuda.empty_cache()
+    cell = dict(family="mwis", pes=probe["pes"],
+                probes=[dict(tag="sweep", point={}, run_s=probe["run_s"])],
+                model_flops=10.0 * probe["pes"] * probe["shape"]["E"],
+                full_point={}, note=(
+                    f"algo=sweep-round p={probe['pes']} {probe['cfg']} "
+                    f"(phase 17's gloo ranks on cuda:0); per-PE shape "
+                    + ", ".join(f"{k} {v}" for k, v in
+                                probe["shape"].items())))
+    rec = dryrun.mesh_record("mwis", "strong_128m", "card", cell, probe,
+                             info)
+    phase("dryrun", f"mwis × sweep-round probe at strong_128m's per-PE "
+                    f"shape (card): {dryrun.summary_line(rec)}; collectives "
+                    f"{rec['collectives']}; kernels {rec['kernels']}")
+    compression_card_and_cpu(dev, opts.seed)
+    missing = [k for k in ("segment_fused", "segment_sum", "embedding_bag",
+                           "embedding_bag_backward") if not launched.get(k)]
+    if missing:
+        fail(f"dryrun: the dry-run's cells never launched {missing}")
+    phase("dryrun", f"kernel launches of the dry-run's counted runs "
+                    f"(phase 17's probe included): {launched}; phase "
+                    f"seconds={time.time() - t_phase:.1f}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1 << 20,
@@ -3011,7 +3302,8 @@ def main() -> None:
             gr["members"], np.asarray(mem_seq, bool)):
         fail("greedy on the card != sequential priority greedy")
     phase("oracle", f"greedy weight {gr['weight']} == sequential {w_seq}")
-    profile_reduce(*reduce_problem(base, pg))
+    uprob, ucfg = reduce_problem(base, pg)
+    profile_reduce(uprob, ucfg)
     torch.cuda.empty_cache()
     sfull = segment_sum_at_size(dev, opts.seed, opts.reps)
     efull = embedding_bag_at_size(dev, opts.seed, opts.reps)
@@ -3019,10 +3311,12 @@ def main() -> None:
     staged = descent_phase(base, g, pg, rg_members, rg_seconds)
     dk = resume_phase(base, g, pg, staged, opts.reps)
     dk["launches"] = staged["launches"]
-    xk = dist_phase(base, g, pg, red_snap, rg_snap, opts)
+    xk = dist_phase(base, g, pg, red_snap, rg_snap, uprob, opts)
+    del uprob
     efull["launches"] += models_phase(dev, opts)
     train_phase(dev, opts)
     ta = train_archs_phase(dev, opts)
+    dryrun_phase(dev, opts, xk.pop("sweep_probe"))
     efull["launches"] += ta["launches"].get("embedding_bag", 0)
     sfull["launches"] += ta["launches"].get("segment_sum", 0)
     bwd = efull.pop("backward")

@@ -3,14 +3,15 @@ embed_dim 128, bot 13-512-256-128, top 1024-1024-512-256-1, dot interaction.
 [arXiv:1906.00091; paper]
 
 The port's copy of ``repro/configs/dlrm_mlperf.py``'s ``CONFIG``,
-``SMOKE`` and ``smoke`` (its dry-run ``ARCH`` waits with
-``launch/dryrun.py``).
+``SMOKE``, ``smoke`` and dry-run ``ARCH``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+from repro_torch.configs import base
 from repro_torch.models.dlrm import DLRMConfig
 
 CONFIG = DLRMConfig()
@@ -29,3 +30,12 @@ def smoke(device: str = "cuda") -> None:
     from repro_torch.configs.smoke_runners import dlrm_smoke
 
     dlrm_smoke(SMOKE, device=device)
+
+
+ARCH = base.ArchDef(
+    arch_id="dlrm-mlperf",
+    family="recsys",
+    shapes=tuple(base.RECSYS_SHAPES),
+    build=functools.partial(base.dlrm_build, CONFIG),
+    smoke=smoke,
+)

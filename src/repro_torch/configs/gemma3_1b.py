@@ -3,15 +3,17 @@ vocab=262144, 5:1 local:global interleave (sliding window 512), 128k ctx.
 [hf:google/gemma-3-1b-pt; unverified]
 
 The port's copy of ``repro/configs/gemma3_1b.py``'s ``CONFIG``,
-``SMOKE`` and ``smoke`` (its dry-run ``ARCH`` waits with
-``configs/base.py``).  Like the reference's ``TransformerConfig``, it
-models neither gemma3's embedding scale nor its post-norms.
+``SMOKE``, ``smoke`` and dry-run ``ARCH``.  Like the reference's
+``TransformerConfig``, it models neither gemma3's embedding scale nor its
+post-norms.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+from repro_torch.configs import base
 from repro_torch.models.transformer import TransformerConfig
 
 CONFIG = TransformerConfig(
@@ -32,3 +34,12 @@ def smoke(device: str = "cuda") -> None:
     from repro_torch.configs.smoke_runners import lm_smoke
 
     lm_smoke(SMOKE, device=device)
+
+
+ARCH = base.ArchDef(
+    arch_id="gemma3-1b",
+    family="lm",
+    shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+    build=functools.partial(base.lm_build, CONFIG),
+    smoke=smoke,
+)

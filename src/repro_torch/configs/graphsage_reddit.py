@@ -2,14 +2,16 @@
 [arXiv:1706.02216; paper]
 
 The port's copy of ``repro/configs/graphsage_reddit.py``'s ``CONFIG``,
-``SMOKE`` and ``smoke`` (its dry-run ``ARCH`` and ``_flops`` wait with
-``configs/base.py``).
+``SMOKE``, ``smoke``, ``_flops`` (the reference's model FLOPs) and
+dry-run ``ARCH``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+from repro_torch.configs import base
 from repro_torch.models.gnn import graphsage as module
 from repro_torch.models.gnn.graphsage import GraphSAGEConfig
 
@@ -19,7 +21,24 @@ SMOKE = dataclasses.replace(CONFIG, d_hidden=16, n_classes=4,
                             sample_sizes=(4, 3))
 
 
+def _flops(cfg, n, e2):
+    per_node = 2 * 2 * cfg.d_feat * cfg.d_hidden
+    per_edge = 2 * cfg.d_hidden
+    return 3.0 * cfg.n_layers * (n * per_node + e2 * per_edge)
+
+
 def smoke(device: str = "cuda") -> None:
     from repro_torch.configs.smoke_runners import gnn_smoke
 
     gnn_smoke(module, SMOKE, molecular=False, sampled=True, device=device)
+
+
+ARCH = base.ArchDef(
+    arch_id="graphsage-reddit",
+    family="gnn",
+    shapes=tuple(base.GNN_SHAPES),
+    build=functools.partial(
+        base.gnn_build, module, CONFIG, molecular=False, flops_fn=_flops
+    ),
+    smoke=smoke,
+)

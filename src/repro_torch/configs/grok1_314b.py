@@ -2,14 +2,15 @@
 MoE 8 experts top-2, vocab 131072.  [hf:xai-org/grok-1; unverified]
 
 The port's copy of ``repro/configs/grok1_314b.py``'s ``CONFIG`` and
-``SMOKE``, and its ``smoke`` (its dry-run ``ARCH`` is an object of the
-reference's ``configs/base.py`` and waits with it).
+``SMOKE``, its ``smoke`` and its dry-run ``ARCH``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+from repro_torch.configs import base
 from repro_torch.models.transformer import TransformerConfig
 
 CONFIG = TransformerConfig(
@@ -30,3 +31,13 @@ def smoke(device: str = "cuda") -> None:
     from repro_torch.configs.smoke_runners import lm_smoke
 
     lm_smoke(SMOKE, device=device)
+
+
+ARCH = base.ArchDef(
+    arch_id="grok-1-314b",
+    family="lm",
+    shapes=("train_4k", "prefill_32k", "decode_32k"),
+    build=functools.partial(base.lm_build, CONFIG),
+    smoke=smoke,
+    skips={"long_500k": "pure full-attention arch (assignment rule)"},
+)

@@ -1,10 +1,16 @@
-"""mwis — the serving and descent shape cells of the paper's workload.
+"""mwis — the paper's own workload as a selectable architecture.
 
-A copy of the ``kind="serve"`` and ``kind="descent"`` rows of the
-reference's ``MWIS_SHAPES`` and its ``MWIS_DESCENT_LADDER``
-(``repro/configs/base.py``), and of its serving helpers
-(``repro/configs/mwis.py``); the reference module imports JAX, so
-the port keeps its own copy instead of importing it.
+A copy of the reference's ``MWIS_SHAPES`` and ``MWIS_DESCENT_LADDER``
+(``repro/configs/base.py``; ``configs/base.py`` re-exports them), and of
+its helpers, ``smoke`` and ``ARCH`` (``repro/configs/mwis.py``); the
+reference modules import JAX, so the port keeps its own copy instead of
+importing them.
+
+The dry-run cells follow the paper's weak-scaling setup (§7: per-PE
+vertices and edges as on HoreKa) plus a strong-scaling RnP cell; each
+carries the named rule schedule its rounds run (an ``engine.SCHEDULES``
+key): the fused hot path for the reduce cells, the cheaper windowless
+schedule for RnP, and the blocked-ELL row-block height in ``seg_blk``.
 
 Serving cells (MWIS-as-a-service) are the single-PE buckets the batched
 front end (:mod:`repro_torch.core.serve`) pads small and medium instances
@@ -26,7 +32,19 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+from repro_torch.configs import base
+
 MWIS_SHAPES: Dict[str, Dict[str, Any]] = {
+    # weak-scaling cells (paper §7): per-PE vertices/edges as on HoreKa
+    "weak_1m": dict(kind="reduce", L=1 << 20, E=1 << 23, G=1 << 16,
+                    B=1 << 16, S=1 << 10, D=16, Dc=4,
+                    schedule="cheap-fused", seg_blk=dict(r_blk=32)),
+    "weak_4m": dict(kind="reduce", L=1 << 22, E=1 << 25, G=1 << 17,
+                    B=1 << 17, S=1 << 11, D=16, Dc=4,
+                    schedule="cheap-fused", seg_blk=dict(r_blk=32)),
+    "strong_128m": dict(kind="rnp", L=1 << 18, E=1 << 21, G=1 << 15,
+                        B=1 << 15, S=1 << 10, D=16, Dc=4,
+                        schedule="edges-only", seg_blk=dict(r_blk=8)),
     "serve_xs": dict(kind="serve", L=64, E=1024, G=4, B=4, S=4, D=8,
                      Dc=4, schedule="cheap-fused",
                      seg_blk=dict(r_blk=8, e_blk=64),
@@ -80,3 +98,22 @@ def serve_cell_names() -> tuple:
              if meta.get("kind") == "serve"]
     cells.sort(key=lambda kv: (kv[1]["L"], kv[1]["E"]))
     return tuple(name for name, _ in cells)
+
+
+def smoke(device: str = "cuda") -> None:
+    from repro_torch.configs.smoke_runners import mwis_smoke
+
+    mwis_smoke(device=device)
+
+
+ARCH = base.ArchDef(
+    arch_id="mwis",
+    family="mwis",
+    # serve cells are single-PE buckets of the batched serving front end
+    # and descent cells are mid-solve re-pack rungs — neither is a
+    # dry-run workload
+    shapes=tuple(s for s, m in MWIS_SHAPES.items()
+                 if m.get("kind") not in ("serve", "descent")),
+    build=base.mwis_build,
+    smoke=smoke,
+)

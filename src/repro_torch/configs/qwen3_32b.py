@@ -2,14 +2,15 @@
 vocab=151936, dense, qk_norm.  [hf:Qwen/Qwen3-32B; hf]
 
 The port's copy of ``repro/configs/qwen3_32b.py``'s ``CONFIG``,
-``SMOKE`` and ``smoke`` (its dry-run ``ARCH`` waits with
-``configs/base.py``).
+``SMOKE``, ``smoke`` and dry-run ``ARCH``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+from repro_torch.configs import base
 from repro_torch.models.transformer import TransformerConfig
 
 CONFIG = TransformerConfig(
@@ -29,3 +30,13 @@ def smoke(device: str = "cuda") -> None:
     from repro_torch.configs.smoke_runners import lm_smoke
 
     lm_smoke(SMOKE, device=device)
+
+
+ARCH = base.ArchDef(
+    arch_id="qwen3-32b",
+    family="lm",
+    shapes=("train_4k", "prefill_32k", "decode_32k"),
+    build=functools.partial(base.lm_build, CONFIG),
+    smoke=smoke,
+    skips={"long_500k": "pure full-attention arch (assignment rule)"},
+)

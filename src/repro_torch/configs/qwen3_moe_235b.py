@@ -3,14 +3,15 @@ MoE 128 experts top-8 (expert d_ff=1536), vocab 151936, qk_norm.
 [hf:Qwen/Qwen3-235B-A22B family; verified tier: hf]
 
 The port's copy of ``repro/configs/qwen3_moe_235b.py``'s ``CONFIG`` and
-``SMOKE``, and its ``smoke`` (its dry-run ``ARCH`` is an object of the
-reference's ``configs/base.py`` and waits with it).
+``SMOKE``, its ``smoke`` and its dry-run ``ARCH``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+from repro_torch.configs import base
 from repro_torch.models.transformer import TransformerConfig
 
 CONFIG = TransformerConfig(
@@ -31,3 +32,15 @@ def smoke(device: str = "cuda") -> None:
     from repro_torch.configs.smoke_runners import lm_smoke
 
     lm_smoke(SMOKE, device=device)
+
+
+ARCH = base.ArchDef(
+    arch_id="qwen3-moe-235b-a22b",
+    family="lm",
+    shapes=("train_4k", "prefill_32k", "decode_32k"),
+    build=functools.partial(base.lm_build, CONFIG),
+    smoke=smoke,
+    skips={"long_500k": "pure full-attention arch (assignment "
+                        "rule: long_500k only for sub-quadratic "
+                        "attention)"},
+)

@@ -7,8 +7,8 @@ The port of ``repro/configs/smoke_runners.py``'s ``lm_smoke``,
 in the same order.  The weights come from a ``torch.Generator`` on the
 device (seed 0), or from ``params`` where the caller passes a tree (the
 tests pass the reference's, converted).  ``gnn_smoke`` and ``dlrm_smoke``
-return the step's loss and updated weights.  ``mwis_smoke`` is covered by
-the port's solver tests.
+return the step's loss and updated weights.  ``mwis_smoke`` runs the
+reference's reduced end-to-end MWIS solve.
 """
 
 from __future__ import annotations
@@ -168,3 +168,18 @@ def dlrm_smoke(cfg: Any, device: str = "cuda",
     assert probs.shape == (batch["dense"].shape[0],)
     assert scores.shape == (query["candidates"].shape[1],)
     return out
+
+
+def mwis_smoke(device: str = "cuda") -> None:
+    """Reduced end-to-end MWIS: partition → DisReduA → RnP → verify."""
+    from repro_torch.core import partition as part
+    from repro_torch.core import solvers as S
+    from repro_torch.core.distributed import DisReduConfig
+    from repro_torch.graphs import generators as gen
+
+    g = gen.rgg2d(200, avg_deg=6, seed=0)
+    pg = part.partition_graph(g, 4, window_cap=8)
+    members, _ = S.solve(pg, "rnp", DisReduConfig(heavy_k=6, mode="async"),
+                         device=device)
+    assert g.is_independent_set(members)
+    assert g.set_weight(members) > 0

@@ -15,9 +15,11 @@ The algorithm bodies are written over an abstract :class:`Ctx` (exchange,
 global-any, per-PE peel); :func:`_union_ctx` instantiates it for the union
 layout and :func:`solver_shard_map_fn` for the per-PE path (one rank of a
 ``torch.distributed`` process group a PE; ``launch.mesh.run_shard_map``
-starts the ranks and runs jobs on them).  Every ``lax.while_loop`` of the
-reference is a host loop reading one device flag per trip (on the per-PE
-path, its OR over the ranks), with the reference's trip count.
+starts the ranks and runs jobs on them), where
+:func:`sweep_probe_shard_map_fn` is the dry-run's one-sweep-round probe.
+Every ``lax.while_loop`` of the reference is a host loop reading one
+device flag per trip (on the per-PE path, its OR over the ranks), with
+the reference's trip count.
 
 :func:`solve_staged` is the staged solve with adaptive shape descent: the
 same loop bodies run in bounded stages, and between stages the alive
@@ -280,6 +282,31 @@ def solver_shard_map_fn(a, cfg: DisReduConfig, algo: str, *, group=None,
     state = R.init_state(t["w0"], t["is_local"], t["is_ghost"])
     state, trips = run_algorithm(state, aux, ctx, cfg, algo, plan=plan)
     return state, R.reconstruct_members(state, aux), trips
+
+
+def sweep_probe_shard_map_fn(a, cfg: DisReduConfig, *, group=None,
+                             device: torch.device | str | None = None):
+    """Loop-free roofline probe on this rank's PE: exactly ONE rule sweep
+    (``cfg.schedule``) + ONE heavy-vertex pass (if ``cfg.use_heavy``) +
+    ONE halo exchange (``cfg.exchange`` over ``group``) from the initial
+    state; returns ``(w, status, offset)``.  DisRedu's loops have
+    data-dependent trip counts, so the dry-run's unit is one sweep-round.
+
+    ``a`` is this rank's row of :func:`~repro_torch.core.distributed.
+    shard_map_arrays`, taken as :func:`solver_shard_map_fn` takes it; the
+    reference's ``sweep_probe_shard_map_fn`` builds the same body under
+    shard_map."""
+    dev = resolve_device(device)
+    aux, halo, plan, t = D._unpack_per_pe(a, dev)
+    state = R.init_state(t["w0"], t["is_local"], t["is_ghost"])
+    state = E.sweep(state, aux, schedule=cfg.schedule, backend=cfg.backend,
+                    plan=plan)
+    if cfg.use_heavy:
+        state = R.rule_heavy_vertex(state, aux, cfg.heavy_k)
+    state, _ = X.exchange_shmap(state, aux, halo, group=group,
+                                method=cfg.exchange, backend=cfg.backend,
+                                plan=plan)
+    return state.w, state.status, state.offset
 
 
 # --------------------------------------------------------------------- #

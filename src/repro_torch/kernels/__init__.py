@@ -15,11 +15,18 @@ the root of the checkout (listed in ``.gitignore``) and loaded with
 ``ctypes``.  Nothing is compiled or loaded when a module is imported.
 Every launch goes through :func:`launch`, which counts it by kernel name
 (:func:`launch_count`, :func:`reset_launch_counts`).
+
+Each kernel's work — its operations and the least bytes it must move, the
+figures its bound is computed from — is a formula of its arguments in
+``<name>/cost.py``.  A public op reports one unit of that work through
+:func:`work_scope` to the work counter active in the process
+(``repro_torch.analysis.count``), on either path.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -28,6 +35,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -169,3 +177,31 @@ def launch_count(kernel: str) -> int:
 def reset_launch_counts() -> None:
     with _launches_lock:
         _launches.clear()
+
+
+class Work(NamedTuple):
+    """One kernel call's work: ``ops`` operations of class ``op_class``
+    (int32, fp32_add, fp32_fma) and the least ``bytes`` it moves (each
+    input read once, each output written once)."""
+
+    ops: int
+    op_class: str
+    bytes: int
+
+
+#: Work counters active in this process, innermost last
+#: (``analysis.count.WorkCounter`` registers itself while it is entered).
+work_counters: list = []
+_NO_SCOPE = contextlib.nullcontext()
+
+
+def work_scope(kernel: str, work, *args, **kwargs):
+    """The context of one public op call.  While a work counter is active
+    it records one unit of ``kernel`` with ``work(*args, **kwargs)`` (the
+    kernel's formula in ``<name>/cost.py``) and hides every aten op inside
+    from the counter — the plain version's on the CPU, the wrapper's on the card —
+    so both count the same.  With none active it is a shared no-op
+    context: the formula is not evaluated."""
+    if not work_counters:
+        return _NO_SCOPE
+    return work_counters[-1].kernel_scope(kernel, work, args, kwargs)

@@ -5,8 +5,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import device_kind
+from repro_torch.kernels import device_kind, work_scope
 from repro_torch.kernels.embedding_bag import kernel as K
+from repro_torch.kernels.embedding_bag.cost import (
+    embedding_bag_bwd_work, embedding_bag_work,
+)
 from repro_torch.kernels.embedding_bag.ref import (
     embedding_bag_bwd_ref, embedding_bag_ref, table_rows,
 )
@@ -23,9 +26,11 @@ class _EmbeddingBag(torch.autograd.Function):
         ctx.cuda, ctx.n_rows, ctx.dtype = cuda, table.shape[0], table.dtype
         ctx.save_for_backward(table if ctx.needs_input_grad[2] else None,
                               idx, wgt)
-        if cuda:
-            return K.embedding_bag(table, idx, wgt)
-        return embedding_bag_ref(table, idx, wgt)
+        with work_scope("embedding_bag", embedding_bag_work, table, idx,
+                        wgt):
+            if cuda:
+                return K.embedding_bag(table, idx, wgt)
+            return embedding_bag_ref(table, idx, wgt)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -33,12 +38,14 @@ class _EmbeddingBag(torch.autograd.Function):
         grad_out = grad_out.contiguous()
         g_table = g_wgt = None
         if ctx.needs_input_grad[0]:
-            if ctx.cuda:
-                g_table = K.embedding_bag_bwd(grad_out, idx, wgt,
-                                              ctx.n_rows).to(ctx.dtype)
-            else:
-                g_table = embedding_bag_bwd_ref(grad_out, idx, wgt,
-                                                ctx.n_rows, ctx.dtype)
+            with work_scope("embedding_bag_backward", embedding_bag_bwd_work,
+                            grad_out, idx, wgt, ctx.n_rows):
+                if ctx.cuda:
+                    g_table = K.embedding_bag_bwd(grad_out, idx, wgt,
+                                                  ctx.n_rows).to(ctx.dtype)
+                else:
+                    g_table = embedding_bag_bwd_ref(grad_out, idx, wgt,
+                                                    ctx.n_rows, ctx.dtype)
         if ctx.needs_input_grad[2]:
             # d out[b] / d wgt[b, k] = the row the forward read
             rows = table[table_rows(idx, ctx.n_rows)].float()  # [B, K, D]

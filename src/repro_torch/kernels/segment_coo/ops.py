@@ -9,8 +9,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import device_kind
+from repro_torch.kernels import device_kind, work_scope
 from repro_torch.kernels.segment_coo import kernel as K
+from repro_torch.kernels.segment_coo.cost import (
+    segment_fused_work, segment_sum_work,
+)
 from repro_torch.kernels.segment_coo.ref import (
     segment_fused_blocked_ref, segment_sum_blocked_ref,
 )
@@ -96,9 +99,11 @@ def segment_sum_coo(
     CUDA tensors launch the hand-written kernel (payloads gathered inside
     it; float32 or bfloat16); CPU tensors take the plain torch version.
     Anything else — another device, or a mix — raises."""
-    if device_kind("segment_sum_coo", data, edge_perm, lrow) == "cuda":
-        return K.segment_sum(data, edge_perm, lrow, n_rows, r_blk=r_blk)
-    return segment_sum_plain(data, edge_perm, lrow, n_rows, r_blk=r_blk)
+    with work_scope("segment_sum", segment_sum_work, data, edge_perm, lrow,
+                    n_rows, r_blk=r_blk):
+        if device_kind("segment_sum_coo", data, edge_perm, lrow) == "cuda":
+            return K.segment_sum(data, edge_perm, lrow, n_rows, r_blk=r_blk)
+        return segment_sum_plain(data, edge_perm, lrow, n_rows, r_blk=r_blk)
 
 
 def segment_fused_plain(
@@ -171,7 +176,10 @@ def segment_fused_coo(
         raise ValueError("segment_fused_coo needs at least one payload")
     kw = dict(data_sum=data_sum, data_max=data_max, data_min=data_min,
               data_or=data_or, or_nbits=or_nbits, r_blk=r_blk)
-    if device_kind("segment_fused_coo", edge_perm, lrow, extent,
-                   *groups) == "cuda":
-        return K.segment_fused(edge_perm, lrow, n_rows, extent=extent, **kw)
-    return segment_fused_plain(edge_perm, lrow, n_rows, **kw)
+    with work_scope("segment_fused", segment_fused_work, edge_perm, lrow,
+                    n_rows, **kw):
+        if device_kind("segment_fused_coo", edge_perm, lrow, extent,
+                       *groups) == "cuda":
+            return K.segment_fused(edge_perm, lrow, n_rows, extent=extent,
+                                   **kw)
+        return segment_fused_plain(edge_perm, lrow, n_rows, **kw)

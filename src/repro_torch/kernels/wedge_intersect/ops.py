@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import device_kind
+from repro_torch.kernels import device_kind, work_scope
 from repro_torch.kernels.wedge_intersect import kernel as K
+from repro_torch.kernels.wedge_intersect.cost import wedge_intersect_work
 from repro_torch.kernels.wedge_intersect.ref import common_neighbor_stats_ref
 
 
@@ -36,10 +37,12 @@ def common_neighbor_stats(
     CUDA tensors launch the kernel (int32 windows, weights and edges, width
     up to 32), CPU tensors take the plain torch version; another device or
     a mix raises.  Indices are taken to be valid vertices."""
-    if device_kind("common_neighbor_stats", window, weights, active, row,
-                   col) == "cuda":
-        return K.wedge_intersect(window, weights, active, row, col)
-    return common_neighbor_stats_ref(window, weights, active, row, col)
+    with work_scope("wedge_intersect", wedge_intersect_work, window,
+                    weights, active, row, col):
+        if device_kind("common_neighbor_stats", window, weights, active, row,
+                       col) == "cuda":
+            return K.wedge_intersect(window, weights, active, row, col)
+        return common_neighbor_stats_ref(window, weights, active, row, col)
 
 
 def window_active_bits(

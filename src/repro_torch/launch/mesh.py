@@ -15,8 +15,10 @@ and the mesh axis is the ranks' process group.
     shard_map ``run()`` does; any rank's failure raises in the caller;
   * :func:`run_shard_map` — runs the per-PE path: hands each rank its
     PE's arrays in files, spawns the ranks once and runs every
-    :class:`PEJob` (``distributed.disredu_shard_map_fn`` or
-    ``solvers.solver_shard_map_fn``) on them in :func:`shard_map_rank`;
+    :class:`PEJob` (``distributed.disredu_shard_map_fn``,
+    ``solvers.solver_shard_map_fn`` or the dry-run's
+    ``solvers.sweep_probe_shard_map_fn``) on them in
+    :func:`shard_map_rank`;
   * :func:`make_serve_mesh` — the serving layer's batch axis
     (:mod:`repro_torch.core.serve`): the first N visible devices of one
     type, as :func:`visible_devices` lists them.  One process drives them
@@ -28,6 +30,8 @@ TPU pod meshes (``make_production_mesh``) have no counterpart.
 
 from __future__ import annotations
 
+import functools
+import json
 import queue
 import tempfile
 import time
@@ -40,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import kernels, resolve_device
+from repro_torch.analysis import count
 from repro_torch.core import distributed as D
 from repro_torch.core import solvers as S
 
@@ -206,7 +211,8 @@ def spawn_pes(fn: Callable, world: int, *, args: tuple = (),
 # --------------------------------------------------------------------- #
 class PEJob(NamedTuple):
     """One run of the per-PE path in :func:`run_shard_map`: ``algo``
-    (reduce | greedy | rg | rnp) under ``cfg`` on partition ``part``."""
+    (reduce | greedy | rg | rnp, or ``sweep``: the dry-run's one-round
+    probe) under ``cfg`` on partition ``part``."""
 
     algo: str
     cfg: D.DisReduConfig
@@ -220,7 +226,9 @@ def shard_map_rank(rank: int, world: int, device: torch.device,
     job)`` of ``jobs`` in order on this rank's PE, its arrays loaded from
     ``<directory>/<file set>_pe<rank>.npz``.  Per job: the outputs as numpy
     (``w``, ``status``, ``offset``, ``log_n``, ``rounds``, and the fold log
-    for reduce or ``members`` for the solvers), the run's wall ``seconds``
+    for reduce or ``members`` for the solvers; a ``sweep`` job gives ``w``,
+    ``status``, ``offset`` and ``count``, the ``analysis.count.measure``
+    record of the probe on this rank as JSON), the run's wall ``seconds``
     (host→device copy included, file load not), ``load_seconds``, and this
     rank's kernel ``launches`` in the run, by kernel.  ``ready`` is the
     seconds from the spawn to this rank joining the group."""
@@ -235,7 +243,15 @@ def shard_map_rank(rank: int, world: int, device: torch.device,
             torch.cuda.synchronize(device)
         kernels.reset_launch_counts()
         t0 = time.time()
-        if job.algo == "reduce":
+        if job.algo == "sweep":
+            (w, status, offset), rec = count.measure(
+                functools.partial(S.sweep_probe_shard_map_fn, device=device),
+                (a, job.cfg), device)
+            rec["memory"]["argument_bytes"] = sum(v.nbytes
+                                                  for v in a.values())
+            res = dict(w=w, status=status, offset=offset)
+            rounds = 1
+        elif job.algo == "reduce":
             state, rounds = D.disredu_shard_map_fn(a, job.cfg, device=device)
             res = dict(log_kind=state.log_kind, log_v=state.log_v,
                        log_u=state.log_u)
@@ -246,9 +262,12 @@ def shard_map_rank(rank: int, world: int, device: torch.device,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         seconds = time.time() - t0
-        res.update(w=state.w, status=state.status, offset=state.offset,
-                   log_n=state.log_n)
+        if job.algo != "sweep":
+            res.update(w=state.w, status=state.status, offset=state.offset,
+                       log_n=state.log_n)
         res = {k: v.cpu().numpy() for k, v in res.items()}
+        if job.algo == "sweep":
+            res["count"] = json.dumps(rec)
         res.update(rounds=rounds, seconds=seconds, load_seconds=load_s,
                    launches={k: kernels.launch_count(k)
                              for k in kernels.KERNELS})

@@ -1193,3 +1193,84 @@ def test_gnn_step_on_cuda_matches_cpu(cuda, fp32_matmul, arch):
     for k, w in gc.items():
         assert (gg[k] - w).abs().max() <= 1e-4 * max(float(
             w.abs().max()), floor), k
+
+
+def _to(tree, dev):
+    """A copy of an input tree (dicts, lists, tuples, named ones included)
+    with every tensor on ``dev``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to(v, dev) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree
+
+
+@pytest.mark.parametrize("arch_id,module,shape,cut", [
+    ("gemma3-1b", "gemma3_1b", "train_4k", dict(seq=64, batch=2)),
+    ("gemma3-1b", "gemma3_1b", "decode_32k", dict(seq=64, batch=2)),
+    ("dlrm-mlperf", "dlrm_mlperf", "train_batch", {}),
+    ("dlrm-mlperf", "dlrm_mlperf", "retrieval_cand", {}),
+    ("graphsage-reddit", "graphsage_reddit", "full_graph_sm", {}),
+    ("gatedgcn", "gatedgcn_cfg", "molecule", {}),
+])
+def test_work_count_on_cuda_matches_cpu(cuda, arch_id, module, shape, cut):
+    """The dry-run's work counter on a SMOKE cell's step: the same inputs
+    (made on the CPU) counted on the card and on the CPU give the same
+    FLOPs, bytes, collectives and kernel units / operations / bytes (the
+    card launches the kernels, the CPU runs their plain versions), and on
+    the card each kernel's units are its launches."""
+    import importlib
+
+    from repro_torch.analysis import count
+    from repro_torch.configs import registry
+
+    smoke = importlib.import_module(f"repro_torch.configs.{module}").SMOKE
+    ov = {f.name: getattr(smoke, f.name) for f in dataclasses.fields(smoke)
+          if f.name != "name"}
+    built = registry.get(arch_id).build(shape, {**ov, **cut})
+    inputs = built.make_inputs("cpu", 0)
+    before = {k: kernels.launch_count(k) for k in kernels.KERNELS}
+    _, card = count.measure(built.fn, _to(inputs, cuda), cuda)
+    launched = {k: n for k in kernels.KERNELS
+                if (n := kernels.launch_count(k) - before[k])}
+    _, cpu = count.measure(built.fn, inputs, "cpu")
+    for k in ("flops", "bytes", "collectives", "kernels"):
+        assert card[k] == cpu[k], (k, {
+            op: (card["by_op"].get(op), cpu["by_op"].get(op))
+            for op in set(card["by_op"]) | set(cpu["by_op"])
+            if card["by_op"].get(op) != cpu["by_op"].get(op)})
+    assert {k: v["units"] for k, v in card["kernels"].items()} == launched
+    assert card["memory"]["temp_bytes"] is not None
+    assert cpu["memory"]["temp_bytes"] is None
+
+
+def test_dryrun_cell_on_cuda(cuda, tmp_path):
+    """A dry-run cell through the CLI on the card at SMOKE widths: probes
+    L 2, 4, a record for every mesh, the card's name and power limit in
+    it, temp bytes measured."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    ov = [x for kv in ("d_model=64", "n_heads=4", "d_head=16", "d_ff=128",
+                       "vocab=128", "attn_chunk=16", "seq=64", "batch=2")
+          for x in ("--override", kv)]
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "gemma3-1b", "--shape", "train_4k", "--mesh", "card", "--out",
+         str(tmp_path), *ov], env=dict(os.environ, PYTHONPATH=str(src)),
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    rec = json.loads((tmp_path / "gemma3-1b__train_4k__card.json")
+                     .read_text())
+    assert rec["ok"] and rec["device"]["platform"] == "gpu"
+    assert rec["device"]["nvidia_smi"]
+    assert rec["memory"]["temp_bytes"] > 0
+    assert [p["tag"] for p in rec["probes"]] == ["L4", "L2"]

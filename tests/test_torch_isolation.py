@@ -2,8 +2,10 @@
 solver with its checkpoint and fault harness, the serving layer (with
 descent on, pipelined, and sharded over four CPU devices), the DLRM and
 LM models with the data pipeline, the optimizers, the serving CLIs (every
-serving arch), the training CLI, DLRM's and the GNNs' smoke train steps
-and the per-PE path's spawned ranks —
+serving arch), the training CLI, DLRM's and the GNNs' smoke train steps,
+the dry-run (its work counter, configs, registry, probes and tables),
+gradient compression and the per-PE path's spawned ranks (the dry-run's
+sweep-round probe and the hierarchical psum among them) —
 loads neither JAX nor the reference package,
 an entry point without ``device=`` refuses to run when no GPU is visible,
 and CPU tensors never count as kernel launches — neither on the solver's
@@ -25,6 +27,10 @@ SCRIPT = textwrap.dedent("""
     import torch
 
     from repro_torch import kernels
+    from repro_torch.analysis import count, extrapolate, report, roofline
+    from repro_torch.configs import base, registry
+    from repro_torch.distributed import compression
+    from repro_torch.launch import dryrun
     from repro_torch.core import distributed as D
     from repro_torch.core import partition as part
     from repro_torch.core import serve as SV
@@ -154,6 +160,21 @@ SCRIPT = textwrap.dedent("""
     for smoke in (dlrm_mlperf, graphsage_reddit, gatedgcn_cfg, dimenet_cfg,
                   equiformer_v2_cfg):
         smoke.smoke(device="cpu")
+    assert len(registry.all_cells()) == 39
+    cell = dryrun.run_cell("gemma3-1b", "decode_32k", "cpu", overrides=dict(
+        d_model=32, n_heads=2, d_head=16, d_ff=64, vocab=64, seq=32,
+        batch=2))
+    rec = dryrun.mesh_record("gemma3-1b", "decode_32k", "card", cell,
+                             cell["total"], dryrun.device_info("cpu"))
+    assert rec["ok"] and rec["roofline"]["bottleneck"] in (
+        "compute", "memory")
+    assert "FAILED" not in report.roofline_table([rec])
+    with count.WorkCounter() as wc:
+        compression.compress_int8_ef({"w": torch.ones(4)},
+                                     compression.ef_init({"w": torch.ones(4)}))
+    assert wc.bytes > 0 and roofline.PEAK_FLOPS == 989.4e12
+    assert extrapolate.FULL_LAYERS["gemma3-1b"] == 26
+    assert base.MWIS_SHAPES["weak_1m"]["L"] == 1 << 20
     counts = tuple(kernels.launch_count(k) for k in kernels.KERNELS)
     assert counts == (0,) * len(kernels.KERNELS), counts
 
@@ -168,7 +189,9 @@ SCRIPT = textwrap.dedent("""
                  lambda: train_cli.main(["--steps", "1", "--ckpt",
                                          tempfile.mkdtemp()]),
                  lambda: dlrm_mlperf.smoke(),
-                 lambda: graphsage_reddit.smoke()):
+                 lambda: graphsage_reddit.smoke(),
+                 lambda: registry.get("mwis").smoke(),
+                 lambda: dryrun.run_cell("gemma3-1b", "decode_32k")):
         try:
             call()
         except RuntimeError as e:
@@ -207,6 +230,7 @@ RANKS = textwrap.dedent("""
     from repro_torch.core import distributed as D
     from repro_torch.core import partition as part
     from repro_torch.core import solvers as S
+    from repro_torch.distributed import compression
     from repro_torch.graphs import generators as gen
     from repro_torch.launch import mesh
 
@@ -215,7 +239,12 @@ RANKS = textwrap.dedent("""
     cfg = D.DisReduConfig(mode="async", exchange="a2a",
                           schedule="cheap-fused", backend="cuda")
     outs, _ = mesh.run_shard_map([pg], [mesh.PEJob("reduce", cfg),
-                                     mesh.PEJob("rnp", cfg)], device="cpu")
+                                     mesh.PEJob("rnp", cfg),
+                                     mesh.PEJob("sweep", cfg)], device="cpu")
+    assert "segment_fused" in outs[2]["count"][0]
+    (ps,) = mesh.spawn_pes(compression.psum_rank, 2, args=(
+        [(1, 2)], [np.ones((2, 3), np.float32)]), device="cpu")
+    assert (ps["hier"] == 2).all()
     members, _ = S.solve(pg, "rnp", cfg, device="cpu")
     assert np.array_equal(D.members_global_per_pe(pg, outs[1]["members"]),
                           members)
