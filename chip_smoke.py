@@ -212,6 +212,17 @@ continues):
                fraction on the ``card`` mesh; phase 17's sweep-round probe
                (run on its four gloo ranks: (w, status, offset) equal to
                the union path's first sweep-round) as an MWIS record;
+               the abstract count (``--abstract``: meta tensors) held to
+               the card, every term equal and each kernel's units its
+               launches, at the three SMOKE cells and ``DRYRUN_META``'s
+               full-width probe points (gemma3-1b and qwen3-moe
+               ``decode_32k`` at L 2, graphsage ``minibatch_lg``, DLRM
+               ``train_batch`` at 1 M rows a table; the card takes the
+               meta run's host-drawn index arrays), with each point's meta
+               temp bytes against the card's peak (reported, not gated);
+               then ``DRYRUN_META_ONLY``, two cells that fit no card
+               (gatedgcn ``ogb_products``, qwen3-moe ``train_4k``, full
+               width, 2 layers), on meta alone;
                ``compress_int8_ef`` / ``topk_ef`` on CUDA tensors bit for
                bit with the CPU; ``hierarchical_psum`` on 4 gloo ranks (2
                pods x 2 data) on cuda:0 against a flat ``all_reduce``.
@@ -297,6 +308,17 @@ DRYRUN_SMOKE = (("gemma3-1b", "train_4k", dict(seq=64, batch=2)),
                 ("dlrm-mlperf", "train_batch", {}),
                 ("graphsage-reddit", "full_graph_sm", {}))
 DRYRUN_FULL = (("gemma3-1b", "decode_32k"), ("dlrm-mlperf", "serve_p99"))
+#: Phase 21: one probe point of a full-width cell per family that the card
+#: counts, counted on meta (the abstract count) and on the card from the
+#: same host-drawn index arrays: every term must be equal.
+DRYRUN_META = (("gemma3-1b", "decode_32k", dict(n_layers=2)),
+               ("qwen3-moe-235b-a22b", "decode_32k", dict(n_layers=2)),
+               ("graphsage-reddit", "minibatch_lg", {}),
+               ("dlrm-mlperf", "train_batch", dict(row_cap=1_000_000)))
+#: Phase 21: cells that fit no card, counted on meta alone at full width
+#: and 2 layers.
+DRYRUN_META_ONLY = (("gatedgcn", "ogb_products", dict(n_layers=2)),
+                    ("qwen3-moe-235b-a22b", "train_4k", dict(n_layers=2)))
 
 #: Phase 14's two-shard and ``--descent auto`` runs serve the first this
 #: many requests of the 192-request stream (its other runs, the whole
@@ -1896,7 +1918,7 @@ def serve_phase(opts) -> dict:
     return kern
 
 
-def plain_lookup(table, idx):
+def plain_lookup(table, idx, host_idx=None):
     """DLRM's lookup through the kernel's plain version (phase 18's second
     pass, and the reference the kernel pass must equal bit for bit)."""
     import torch
@@ -3059,6 +3081,96 @@ def count_card_and_cpu(dev, arch_id: str, shape: str, cut: dict,
     return launches
 
 
+def count_card_and_meta(dev, arch_id: str, shape: str, ov: dict,
+                        seed: int, label: str) -> tuple:
+    """Phase 21: a cell counted on meta (``configs.base``'s abstract
+    inputs) and on the card (the same index arrays, drawn on the host and
+    moved there): FLOPs, bytes, transfer bytes, collectives and each
+    kernel's units, operations and bytes must be equal, and on the card
+    each kernel's units its launches.  Returns (the card's launches, the
+    meta temp bytes' gap to the card's peak, relative)."""
+    import torch
+
+    from repro_torch.analysis import count
+    from repro_torch.configs import registry
+
+    built = registry.get(arch_id).build(shape, ov)
+    _, meta = count.measure(built.fn, built.make_inputs("meta", seed),
+                            "meta")
+    inputs = built.make_inputs(dev, seed)
+    torch.cuda.synchronize()
+    before = launch_counts()
+    out, card = count.measure(built.fn, inputs, dev, tally=True)
+    del inputs, out
+    launches = {k: v - before[k] for k, v in launch_counts().items()
+                if v - before[k]}
+    keys = ("flops", "bytes", "transfer_bytes", "collectives", "kernels")
+    if any(card[k] != meta[k] for k in keys):
+        diff = {op: (card["by_op"].get(op), meta["by_op"].get(op))
+                for op in set(card["by_op"]) | set(meta["by_op"])
+                if card["by_op"].get(op) != meta["by_op"].get(op)}
+        fail(f"dryrun: {label}: the meta count != the card's: "
+             f"{ {k: (meta[k], card[k]) for k in keys} }; ops "
+             f"[calls, flops, bytes] (card, meta) that differ: {diff}")
+    units = {k: v["units"] for k, v in card["kernels"].items()}
+    if units != launches:
+        fail(f"dryrun: {label}: counted units {units} != launches "
+             f"{launches} on the card")
+    mem, cm = meta["memory"], card["memory"]
+    gap = (mem["temp_bytes"] - cm["temp_bytes"]) / max(cm["temp_bytes"], 1)
+    phase("dryrun", f"{label}: meta == card: flops {meta['flops']} bytes "
+                    f"{meta['bytes']} transfer bytes "
+                    f"{meta['transfer_bytes']} kernels {meta['kernels']} "
+                    f"(card launches {launches}); temp bytes: meta "
+                    f"{mem['temp_bytes']}, card peak {cm['temp_bytes']} "
+                    f"(its storage tally {cm['tally_temp_bytes']}), gap "
+                    f"{gap:+.4f}; argument bytes meta "
+                    f"{mem['argument_bytes']} card {cm['argument_bytes']}; "
+                    f"meta host_s {meta['host_s']:.3f}, card run_s "
+                    f"{card['run_s']:.3f}")
+    torch.cuda.empty_cache()
+    return launches, gap
+
+
+def abstract_phase(dev, opts) -> dict:
+    """Phase 21's abstract half: the SMOKE cells and the ``DRYRUN_META``
+    probe points counted on meta against the card (``count_card_and_meta``),
+    the largest temp-bytes gap (reported, not gated), and the
+    ``DRYRUN_META_ONLY`` cells on meta alone.  Returns the card's
+    launches."""
+    from repro_torch.analysis import count
+    from repro_torch.configs import registry
+
+    launched, gaps = {}, {}
+    points = [(a, s, {**smoke_overrides(a), **cut}, f"{a} × {s} SMOKE "
+               f"{cut or ''}".strip()) for a, s, cut in DRYRUN_SMOKE]
+    points += [(a, s, ov, f"{a} × {s} {ov or 'full'}")
+               for a, s, ov in DRYRUN_META]
+    for arch_id, shape, ov, label in points:
+        got, gaps[label] = count_card_and_meta(dev, arch_id, shape, ov,
+                                               opts.seed, label)
+        for k, v in got.items():
+            launched[k] = launched.get(k, 0) + v
+    worst = max(gaps, key=lambda k: abs(gaps[k]))
+    phase("dryrun", f"meta temp bytes against the card's peak: largest "
+                    f"relative gap {gaps[worst]:+.4f} at {worst}")
+    for arch_id, shape, ov in DRYRUN_META_ONLY:
+        built = registry.get(arch_id).build(shape, ov)
+        t0 = time.time()
+        _, rec = count.measure(built.fn, built.make_inputs("meta",
+                                                           opts.seed),
+                               "meta")
+        phase("dryrun", f"{arch_id} × {shape} {ov} on meta (fits no "
+                        f"card): flops {rec['flops']} bytes {rec['bytes']} "
+                        f"transfer bytes {rec['transfer_bytes']} kernels "
+                        f"{rec['kernels']} temp bytes "
+                        f"{rec['memory']['temp_bytes']} argument bytes "
+                        f"{rec['memory']['argument_bytes']}; host_s "
+                        f"{rec['host_s']:.1f} (inputs and count "
+                        f"{time.time() - t0:.1f} s)")
+    return launched
+
+
 def compression_card_and_cpu(dev, seed: int) -> None:
     """Phase 21: ``compress_int8_ef`` (float32 and bfloat16 leaves) and
     ``topk_ef`` (float32 leaves: bfloat16 magnitudes tie) on CUDA tensors,
@@ -3130,8 +3242,9 @@ def dryrun_phase(dev, opts, probe: dict) -> None:
     cells at full width on the card (probes and extrapolation as the
     dry-run's CLI runs them), each record's flops, bytes, t_bound,
     bottleneck, run_s and roofline fraction on the ``card`` mesh; the MWIS
-    sweep-round probe's record from phase 17's ranks; the compression
-    checks.  Every kernel of the dry-run's cells must have launched."""
+    sweep-round probe's record from phase 17's ranks; the abstract count
+    held to the card (``abstract_phase``); the compression checks.  Every
+    kernel of the dry-run's cells must have launched."""
     import torch
 
     from repro_torch.launch import dryrun
@@ -3185,6 +3298,11 @@ def dryrun_phase(dev, opts, probe: dict) -> None:
     phase("dryrun", f"mwis × sweep-round probe at strong_128m's per-PE "
                     f"shape (card): {dryrun.summary_line(rec)}; collectives "
                     f"{rec['collectives']}; kernels {rec['kernels']}")
+    t_abstract = time.time()
+    for k, v in abstract_phase(dev, opts).items():
+        launched[k] = launched.get(k, 0) + v
+    phase("dryrun", f"abstract count against the card: "
+                    f"{time.time() - t_abstract:.1f} s")
     compression_card_and_cpu(dev, opts.seed)
     missing = [k for k in ("segment_fused", "segment_sum", "embedding_bag",
                            "embedding_bag_backward") if not launched.get(k)]

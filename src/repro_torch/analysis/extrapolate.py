@@ -15,7 +15,11 @@ the other.  Where a term is not affine in an axis the record's note says
 so: the MoE capacity rounds; gemma3's global layers are every 6th; a
 training step's weight gradients of stacked layers are O(L^2) bytes
 (``launch/dryrun.py``'s caveats), so there the linear form is a lower
-bound.
+bound.  The abstract count (``launch/dryrun.py --abstract``) has no such
+caveat: it counts every cell at its full shape on meta tensors, and only
+prefill at layer probes of its full batch, which :func:`affine` carries
+exactly to the full depth (by layer kind where local and global layers
+interleave).
 Loop-free families take a single probe verbatim; MWIS probes are one
 sweep-round (the reported unit — trip counts are a runtime quantity).
 
@@ -85,6 +89,53 @@ def multilinear(samples: List[Tuple[Dict[str, float], Any]],
     v0, v1 = (multilinear([(p, v) for p, v in samples if p[axis] == x], rest)
               for x in xs)
     return _lerp(v0, v1, xs[0], xs[1], target[axis])
+
+
+def affine(samples: List[Tuple[Dict[str, float], Any]],
+           target: Dict[str, float]) -> Any:
+    """Evaluate at ``target`` the affine function a + Σ b_axis · x_axis
+    through ``samples`` (``(point, value)`` pairs, one more than the axes
+    of ``target``, in general position): Σ c_i · value_i with the weights
+    c that carry the samples' points to ``target``.  Exact where the
+    weights are integers (the dry-run's layer-kind probes).  A value is a
+    number or a tree of numbers."""
+    from fractions import Fraction
+
+    axes = sorted(target)
+    if len(samples) != len(axes) + 1:
+        raise ValueError(f"{len(samples)} probes for {len(axes)} axes")
+    # rows: [1, x_axis...] of each sample; solve rows^T c = [1, target...]
+    a = [[Fraction(1)] + [Fraction(p[ax]) for ax in axes] for p, _ in samples]
+    m = [[a[i][j] for i in range(len(a))] + [Fraction(
+        1 if j == 0 else target[axes[j - 1]])] for j in range(len(a))]
+    n = len(m)
+    for col in range(n):
+        piv = next((r for r in range(col, n) if m[r][col] != 0), None)
+        if piv is None:
+            raise ValueError(f"probe points {[p for p, _ in samples]} do "
+                             f"not determine {axes}")
+        m[col], m[piv] = m[piv], m[col]
+        for r in range(n):
+            if r != col and m[r][col] != 0:
+                f = m[r][col] / m[col][col]
+                m[r] = [x - f * y for x, y in zip(m[r], m[col])]
+    weights = [m[i][n] / m[i][i] for i in range(n)]
+    return _combine([v for _, v in samples], weights)
+
+
+def _combine(values: List[Any], weights: List[Any]) -> Any:
+    """Σ weights_i · values_i over trees of one structure (ints stay ints
+    where every weight is an integer)."""
+    v0 = values[0]
+    if isinstance(v0, dict):
+        return {k: _combine([v[k] for v in values], weights) for k in v0}
+    if v0 is None or isinstance(v0, str):
+        return v0
+    total = sum(w * v for w, v in zip(weights, values))
+    if all(w.denominator == 1 for w in weights) and all(
+            isinstance(v, int) for v in values):
+        return int(total)
+    return float(total)
 
 
 def _probe_point(rec: Dict) -> Dict[str, float]:

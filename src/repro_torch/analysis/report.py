@@ -83,10 +83,50 @@ def dryrun_table(records: List[Dict]) -> str:
         coll = sum(r["collectives"].values())
         rows.append(
             f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r['n_chips']} "
-            f"| {r['run_s']:.1f} | {_gb(m['argument_bytes'])} "
+            f"| {_seconds(r):.1f} | {_gb(m['argument_bytes'])} "
             f"| {_gb(m['temp_bytes'])} | {fmt_si(c['flops'])} "
             f"| {fmt_si(c['bytes_accessed'])} | {fmt_si(coll)} |"
         )
+    return "\n".join(rows)
+
+
+def _seconds(r: Dict) -> float:
+    """The counted runs' time: ``run_s`` on a device, ``host_s`` on meta
+    (the abstract count)."""
+    return r["run_s"] if "run_s" in r else r["host_s"]
+
+
+def abstract_table(records: List[Dict], base: List[Dict] = ()) -> str:
+    """The ``card`` mesh's records: where each cell was counted (``meta``
+    or ``card``), its FLOPs, bytes, t_bound, bottleneck, roofline
+    fraction, temp GB and seconds (host seconds on meta), and where
+    ``base`` records (another run's) count the cell too, the ratio of
+    FLOPs and of bytes to theirs."""
+    old = {(r["arch"], r["shape"]): r for r in base
+           if r.get("ok") and r["mesh"] == "card"}
+    rows = ["| arch | shape | counted on | flops | bytes | t_bound(s) | "
+            "bound | roofline_frac | temp(GB) | time(s) | flops / base | "
+            "bytes / base |", "|" + "---|" * 12]
+    for r in sorted(records, key=lambda r: (r["arch"], r["shape"])):
+        if r["mesh"] != "card":
+            continue
+        if not r.get("ok"):
+            rows.append(f"| {r['arch']} | {r['shape']} | FAILED |")
+            continue
+        rf, c = r["roofline"], r["cost"]
+        t_bound = max(rf["t_compute_s"], rf["t_memory_s"],
+                      rf["t_collective_s"])
+        b = old.get((r["arch"], r["shape"]))
+        ratios = ("new | new" if b is None else
+                  f"{c['flops'] / b['cost']['flops']:.4f} | "
+                  f"{c['bytes_accessed'] / b['cost']['bytes_accessed']:.4f}")
+        where = "meta" if r.get("counted_on") == "meta" else "card"
+        rows.append(
+            f"| {r['arch']} | {r['shape']} | {where} | {c['flops']:.4e} "
+            f"| {c['bytes_accessed']:.4e} | {t_bound:.4e} "
+            f"| {rf['bottleneck'][:4]} | {rf['roofline_fraction']:.4f} "
+            f"| {_gb(r['memory']['temp_bytes'])} | {_seconds(r):.1f} "
+            f"| {ratios} |")
     return "\n".join(rows)
 
 
@@ -113,9 +153,16 @@ def main() -> None:
     ap.add_argument("--dir", default="artifacts/dryrun_torch")
     ap.add_argument("--tag", default="")
     ap.add_argument("--kind", default="roofline",
-                    choices=("roofline", "dryrun", "notes"))
+                    choices=("roofline", "dryrun", "notes", "abstract"))
+    ap.add_argument("--base", action="append", default=[],
+                    help="--kind abstract: another run's records (a later "
+                         "--base wins), to give each cell's FLOPs and "
+                         "bytes as a ratio to theirs")
     args = ap.parse_args()
     recs = load(args.dir, args.tag)
+    if args.kind == "abstract":
+        print(abstract_table(recs, [r for d in args.base for r in load(d)]))
+        return
     print(dict(roofline=roofline_table, dryrun=dryrun_table,
                notes=notes_table)[args.kind](recs))
 

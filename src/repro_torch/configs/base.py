@@ -7,13 +7,25 @@ smoke config.
 
 The port of ``repro/configs/base.py``: the shape tables (``MWIS_SHAPES``
 lives in ``configs/mwis.py`` and is re-exported here), :class:`BuildResult`,
-:class:`ArchDef`, :func:`pad_multiple` and the four family builders.
-Steps train through ``train/step.py`` with AdamW at its defaults, as the
-reference's do.  The reference's abstract inputs, shardings and FSDP axes
-(``sds``, ``ns``, ``sharding_tree``, ``opt_shardings``, ``fsdp_axes_for``)
-describe a GSPMD program on a TPU pod and are not ported; a probe point
-(fewer layers, a smaller batch, fewer table rows) comes in through
-``overrides`` instead, so that a cell's step fits one card.
+:class:`ArchDef`, :func:`pad_multiple`, the abstract inputs (:func:`sds`,
+:func:`opt_abstract`) and the four family builders.  Steps train through
+``train/step.py`` with AdamW at its defaults, as the reference's do.  The
+reference's shardings and FSDP axes (``ns``, ``sharding_tree``,
+``opt_shardings``, ``fsdp_axes_for``) describe a GSPMD program on a TPU
+pod and are not ported; a probe point (fewer layers, a smaller batch,
+fewer table rows) comes in through ``overrides``, so that a cell's step
+fits one card.
+
+``make_inputs(device, seed)`` makes a cell's inputs.  The index arrays
+whose data sets work that the host packs or a kernel formula counts (the
+GNNs' edge ends, triplets and graph ids; DLRM's ids) are drawn on the
+host, from ``seed``, on every device; the batch holds them on its device
+and carries the host copies under ``"host"``, so that a count on one
+device equals the count on another.  On ``"meta"`` (the dry-run's
+abstract count, which holds no tensor of the cell) the weights come from
+``models.common.abstract_params``, the optimizer state from
+:func:`opt_abstract` and the float and token inputs from :func:`sds`, and
+no device ``torch.Generator`` is made.
 """
 
 from __future__ import annotations
@@ -79,6 +91,9 @@ class BuildResult:
     #: work is counted in other processes (MWIS: one rank a PE); None:
     #: ``analysis.count.measure`` of ``fn`` on ``make_inputs``'s inputs
     measure: Optional[Callable] = None
+    #: the cell's model config, overrides applied (the dry-run reads an
+    #: LM's layer pattern)
+    cfg: Any = None
 
 
 @dataclasses.dataclass
@@ -103,14 +118,57 @@ def _replace(cfg, overrides: Optional[Dict[str, Any]]):
         cfg, **{k: v for k, v in overrides.items() if hasattr(cfg, k)})
 
 
-def _generator(device, seed: int) -> Tuple[torch.device, torch.Generator]:
+def sds(shape, dtype) -> torch.Tensor:
+    """A meta tensor of ``shape`` and ``dtype``: an input of the abstract
+    count, which holds no memory (the reference's ``ShapeDtypeStruct``)."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def opt_abstract(params_abs) -> opt.AdamWState:
+    """The AdamW state of ``params_abs`` on meta: the int32 step and the
+    float32 moments, shaped as ``optimizer.adamw_init`` makes them; no
+    init runs."""
+    def f32(p):
+        return sds(p.shape, torch.float32)
+
+    return opt.AdamWState(step=sds((), torch.int32),
+                          mu=opt.tree_map(f32, params_abs),
+                          nu=opt.tree_map(f32, params_abs))
+
+
+def _generator(device, seed: int
+               ) -> Tuple[torch.device, Optional[torch.Generator]]:
+    """The device and its generator (None on meta, which draws nothing)."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return dev, None
     return dev, torch.Generator(device=dev).manual_seed(seed)
 
 
+def _params(specs, gen, dev):
+    if dev.type == "meta":
+        return MC.abstract_params(specs)
+    return MC.init_params(specs, gen, dev)
+
+
 def _train_inputs(specs, gen, dev) -> Tuple[Any, Any]:
-    params = MC.init_params(specs, gen, dev)
+    params = _params(specs, gen, dev)
+    if dev.type == "meta":
+        return params, opt_abstract(params)
     return params, opt.adamw_init(params)
+
+
+def _randn(gen, dev, shape) -> torch.Tensor:
+    if dev.type == "meta":
+        return sds(shape, torch.float32)
+    return torch.randn(shape, generator=gen, device=dev)
+
+
+def _randint(gen, dev, high: int, shape) -> torch.Tensor:
+    if dev.type == "meta":
+        return sds(shape, torch.int32)
+    return torch.randint(0, high, shape, generator=gen, device=dev,
+                         dtype=torch.int32)
 
 
 # --------------------------------------------------------------------- #
@@ -130,8 +188,7 @@ def lm_build(cfg, shape_name: str,
     ocfg = opt.AdamWConfig()
 
     def tokens(gen, dev, shape):
-        return torch.randint(0, cfg.vocab, shape, generator=gen, device=dev,
-                             dtype=torch.int32)
+        return _randint(gen, dev, cfg.vocab, shape)
 
     if meta["kind"] == "train":
         def make_inputs(device, seed: int):
@@ -145,24 +202,24 @@ def lm_build(cfg, shape_name: str,
                               ocfg)
 
         flops = 6.0 * cfg.n_active_params() * B * S
-        return BuildResult(train, make_inputs, flops)
+        return BuildResult(train, make_inputs, flops, cfg=cfg)
 
     if meta["kind"] == "prefill":
         def make_inputs(device, seed: int):
             dev, gen = _generator(device, seed)
-            return MC.init_params(specs, gen, dev), tokens(gen, dev, (B, S))
+            return _params(specs, gen, dev), tokens(gen, dev, (B, S))
 
         @torch.no_grad()
         def prefill(params, toks):
             return T.prefill_step(T.Transformer(cfg, params), toks, cfg)
 
         flops = 2.0 * cfg.n_active_params() * B * S
-        return BuildResult(prefill, make_inputs, flops)
+        return BuildResult(prefill, make_inputs, flops, cfg=cfg)
 
     # decode: one new token against a seq-long KV cache
     def make_inputs(device, seed: int):
         dev, gen = _generator(device, seed)
-        params = MC.init_params(specs, gen, dev)
+        params = _params(specs, gen, dev)
         (k_shape, k_dt), (v_shape, v_dt) = T.make_kv_cache_specs(cfg, B, S)
         kc = torch.zeros(k_shape, dtype=k_dt, device=dev)
         vc = torch.zeros(v_shape, dtype=v_dt, device=dev)
@@ -176,7 +233,7 @@ def lm_build(cfg, shape_name: str,
 
     flops = 2.0 * cfg.n_active_params() * B
     return BuildResult(decode, make_inputs, flops,
-                       note="decode against %d-token cache" % S)
+                       note="decode against %d-token cache" % S, cfg=cfg)
 
 
 def gnn_build(module, cfg, shape_name: str,
@@ -201,27 +258,23 @@ def gnn_build(module, cfg, shape_name: str,
         n, e = meta["n_nodes"], 2 * meta["n_edges"]
         ends = np.full((2, E2), N, np.int32)
         ends[:, :e] = rng.integers(0, n, (2, e), dtype=np.int32)
+        host = dict(row=torch.from_numpy(ends[0]),
+                    col=torch.from_numpy(ends[1]))
         batch = dict(
-            node_feat=torch.randn((N, d_feat), generator=gen, device=dev),
-            row=torch.from_numpy(ends[0]).to(dev),
-            col=torch.from_numpy(ends[1]).to(dev),
-            labels=torch.randint(0, getattr(cfg, "n_classes", 2), (N,),
-                                 generator=gen, device=dev,
-                                 dtype=torch.int32),
+            node_feat=_randn(gen, dev, (N, d_feat)),
+            labels=_randint(gen, dev, getattr(cfg, "n_classes", 2), (N,)),
             label_mask=(torch.arange(N, device=dev) < n).float(),
         )
         if molecular:
             G = meta["n_graphs"]
             T_budget = min(8 * E2, 1 << 24)
-            batch.update(
-                pos=torch.randn((N, 3), generator=gen, device=dev),
-                batch_id=(torch.arange(N, device=dev) * G // N).to(
-                    torch.int32),
-                energy=torch.randn((G,), generator=gen, device=dev),
+            host.update(
+                batch_id=(torch.arange(N) * G // N).to(torch.int32),
                 triplets=torch.from_numpy(rng.integers(
-                    0, e, (T_budget, 2), dtype=np.int32)).to(dev),
-                n_graphs=G,
-            )
+                    0, e, (T_budget, 2), dtype=np.int32)))
+            batch.update(pos=_randn(gen, dev, (N, 3)),
+                         energy=_randn(gen, dev, (G,)), n_graphs=G)
+        batch.update({k: v.to(dev) for k, v in host.items()}, host=host)
         params, ostate = _train_inputs(module.param_specs(cfg), gen, dev)
         return params, ostate, batch
 
@@ -229,14 +282,16 @@ def gnn_build(module, cfg, shape_name: str,
         return train_step(params, ostate, batch, cfg, opt.adamw_update, ocfg,
                           model_cls=module.MODEL, loss_fn=module.loss_fn)
 
-    return BuildResult(train, make_inputs, flops_fn(cfg, N, E2))
+    return BuildResult(train, make_inputs, flops_fn(cfg, N, E2), cfg=cfg)
 
 
 def dlrm_build(cfg, shape_name: str,
                overrides: Optional[Dict[str, Any]] = None) -> BuildResult:
     """A DLRM cell; ``overrides`` may set config fields and cap every table
     at ``row_cap`` rows (the probes' table-rows axis; ids are drawn below
-    each capped vocabulary)."""
+    each capped vocabulary).  The ids are drawn on the host from the seed
+    (``make_inputs`` in the module's docstring); a retrieval's candidates,
+    whose values set no work, on the device."""
     from repro_torch.models import dlrm as M
 
     meta = RECSYS_SHAPES[shape_name]
@@ -258,55 +313,56 @@ def dlrm_build(cfg, shape_name: str,
         + cfg.n_sparse * cfg.embed_dim
     )
 
-    def features(gen, dev, n):
-        return dict(
-            dense=torch.randn((n, cfg.n_dense), generator=gen, device=dev),
-            sparse=torch.stack([
-                torch.randint(0, v, (n,), generator=gen, device=dev,
-                              dtype=torch.int32) for v in cfg.vocabs], 1))
+    def features(gen, dev, seed: int, n: int):
+        host_gen = torch.Generator().manual_seed(seed)
+        sparse = torch.stack([
+            torch.randint(0, v, (n,), generator=host_gen, dtype=torch.int32)
+            for v in cfg.vocabs], 1)
+        return dict(dense=_randn(gen, dev, (n, cfg.n_dense)),
+                    sparse=sparse.to(dev), host=dict(sparse=sparse))
 
     if meta["kind"] == "train":
         def make_inputs(device, seed: int):
             dev, gen = _generator(device, seed)
             params, ostate = _train_inputs(specs, gen, dev)
-            batch = dict(features(gen, dev, B), labels=torch.randint(
-                0, 2, (B,), generator=gen, device=dev, dtype=torch.int32))
+            batch = dict(features(gen, dev, seed, B),
+                         labels=_randint(gen, dev, 2, (B,)))
             return params, ostate, batch
 
         def train(params, ostate, batch):
             return train_step(params, ostate, batch, cfg, opt.adamw_update,
                               ocfg, model_cls=M.MODEL, loss_fn=M.loss_fn)
 
-        return BuildResult(train, make_inputs, 3.0 * fwd)
+        return BuildResult(train, make_inputs, 3.0 * fwd, cfg=cfg)
 
     if meta["kind"] == "serve":
         def make_inputs(device, seed: int):
             dev, gen = _generator(device, seed)
-            return MC.init_params(specs, gen, dev), features(gen, dev, B)
+            params = _params(specs, gen, dev)
+            return params, features(gen, dev, seed, B)
 
         @torch.no_grad()
         def serve(params, batch):
             return M.serve_step(M.DLRM(cfg, params), batch, cfg)
 
-        return BuildResult(serve, make_inputs, fwd)
+        return BuildResult(serve, make_inputs, fwd, cfg=cfg)
 
     # retrieval: 1 query × n_candidates batched dot
     nc = meta["n_candidates"]
 
     def make_inputs(device, seed: int):
         dev, gen = _generator(device, seed)
-        params = MC.init_params(specs, gen, dev)
-        return params, dict(
-            dense=torch.randn((1, cfg.n_dense), generator=gen, device=dev),
-            candidates=torch.randint(0, cfg.vocabs[0], (1, nc),
-                                     generator=gen, device=dev,
-                                     dtype=torch.int32))
+        params = _params(specs, gen, dev)
+        dense = _randn(gen, dev, (1, cfg.n_dense))
+        return params, dict(dense=dense, candidates=_randint(
+            gen, dev, cfg.vocabs[0], (1, nc)))
 
     @torch.no_grad()
     def retrieve(params, batch):
         return M.retrieval_step(M.DLRM(cfg, params), batch, cfg)
 
-    return BuildResult(retrieve, make_inputs, 2.0 * nc * cfg.embed_dim)
+    return BuildResult(retrieve, make_inputs, 2.0 * nc * cfg.embed_dim,
+                       cfg=cfg)
 
 
 def mwis_build(shape_name: str,

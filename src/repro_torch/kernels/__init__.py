@@ -8,7 +8,9 @@ Each kernel ships as
   <name>/ref.py    - the plain torch version (CPU tests; held against the
                      kernel on the card),
   <name>/ops.py    - the public op: CPU tensors take the plain version,
-                     CUDA tensors launch the kernel.  There is no fallback.
+                     CUDA tensors launch the kernel, meta tensors (the
+                     dry-run's abstract count) take the plain version for
+                     its output's shape.  There is no fallback.
 
 Kernels are compiled at first use with ``nvcc`` into ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``) and loaded with
@@ -145,15 +147,26 @@ def require_cuda(kernel: str, device: torch.device) -> None:
 
 
 def device_kind(op: str, *tensors: torch.Tensor | None) -> str:
-    """Where a public op runs: ``"cuda"`` (launch the kernel) or ``"cpu"``
-    (take the plain version) when every tensor given lies there; raises on
+    """Where a public op runs: ``"cuda"`` (launch the kernel), ``"cpu"``
+    (take the plain version) or ``"meta"`` (the plain version for its
+    output's shape: the dry-run's abstract count, which a caller asks for
+    by handing meta tensors) when every tensor given lies there; raises on
     another device or a mix.  ``None`` entries (absent payloads) are
     skipped."""
     kinds = {t.device.type for t in tensors if t is not None}
-    if kinds in ({"cuda"}, {"cpu"}):
+    if kinds in ({"cuda"}, {"cpu"}, {"meta"}):
         return kinds.pop()
     raise ValueError(f"{op} got tensors on {sorted(kinds)}; "
-                     "expected all on the CPU or all on CUDA")
+                     "expected all on the CPU, all on CUDA or all on meta")
+
+
+def require_host_figure(kernel: str, what: str, t: torch.Tensor) -> None:
+    """Raise if ``t`` is a meta tensor: a work formula that reads data
+    (live slots, touched rows) needs ``what``, a figure the host knows,
+    to count a call on meta tensors.  It never guesses."""
+    if t.is_meta:
+        raise ValueError(f"{kernel}'s work on meta tensors needs {what}: "
+                         "its formula reads data that meta tensors lack")
 
 
 def launch(kernel: str, fn, device: torch.device, *args) -> None:

@@ -6,11 +6,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import Work
+from repro_torch.kernels import Work, require_host_figure
 
 
-def _live(lrow: torch.Tensor, r_blk: int) -> int:
-    """Plan slots that hold an edge (padding slots have lrow = r_blk)."""
+def _live(lrow: torch.Tensor, r_blk: int, n_live: int | None = None,
+          kernel: str = "segment_fused") -> int:
+    """Plan slots that hold an edge (padding slots have lrow = r_blk):
+    ``n_live`` where the caller knows it from packing, else counted in
+    ``lrow`` (which a meta tensor cannot be: it raises)."""
+    if n_live is not None:
+        return int(n_live)
+    require_host_figure(kernel, "n_live (the plan's live slots)", lrow)
     return int(((lrow >= 0) & (lrow < r_blk)).sum())
 
 
@@ -50,12 +56,13 @@ def segment_fused_live_bytes(edge_perm: torch.Tensor, lrow: torch.Tensor,
 
 
 def segment_sum_work(data: torch.Tensor, edge_perm: torch.Tensor,
-                     lrow: torch.Tensor, n_rows: int, *, r_blk: int = 8
-                     ) -> Work:
+                     lrow: torch.Tensor, n_rows: int, *, r_blk: int = 8,
+                     n_live: int | None = None) -> Work:
     """One float32 add a live slot and payload column.  Least bytes: lrow
     at every slot, each live slot's edge id and payload row, the
-    [n_rows, D] output once."""
-    live = _live(lrow, r_blk)
+    [n_rows, D] output once.  ``n_live``: the live slots, where the
+    caller knows them (``ScatterPlan.n_live``); on meta tensors it must."""
+    live = _live(lrow, r_blk, n_live, "segment_sum")
     d, es = data.shape[-1], data.element_size()
     return Work(live * d, "fp32_add",
                 4 * lrow.numel() + 4 * live + es * d * (live + n_rows))

@@ -92,15 +92,19 @@ def segment_sum_coo(
     n_rows: int,
     *,
     r_blk: int = 8,
+    n_live: int | None = None,
 ) -> torch.Tensor:
     """Blocked segment sum; returns [n_rows, D] in data's type (float32
     accumulation, one rounding).
 
     CUDA tensors launch the hand-written kernel (payloads gathered inside
-    it; float32 or bfloat16); CPU tensors take the plain torch version.
-    Anything else — another device, or a mix — raises."""
+    it; float32 or bfloat16); CPU tensors take the plain torch version;
+    meta tensors take it for the output's shape.  Anything else — another
+    device, or a mix — raises.  ``n_live`` (the plan's live slots, known
+    at packing) goes only to the work counter's formula, which needs it
+    on meta tensors."""
     with work_scope("segment_sum", segment_sum_work, data, edge_perm, lrow,
-                    n_rows, r_blk=r_blk):
+                    n_rows, r_blk=r_blk, n_live=n_live):
         if device_kind("segment_sum_coo", data, edge_perm, lrow) == "cuda":
             return K.segment_sum(data, edge_perm, lrow, n_rows, r_blk=r_blk)
         return segment_sum_plain(data, edge_perm, lrow, n_rows, r_blk=r_blk)
@@ -170,7 +174,8 @@ def segment_fused_coo(
 
     CUDA tensors launch the hand-written kernel (one pass, payloads gathered
     inside it); CPU tensors take the plain torch version.  Anything else —
-    another device, or a mix — raises."""
+    another device, or a mix — raises; so do meta tensors under a work
+    counter, whose formula counts the live slots in ``lrow``."""
     groups = (data_sum, data_max, data_min, data_or)
     if all(d is None for d in groups):
         raise ValueError("segment_fused_coo needs at least one payload")

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import Work
+from repro_torch.kernels import Work, require_host_figure
 
 
 def wedge_intersect_work(window: torch.Tensor, weights: torch.Tensor,
@@ -17,7 +17,8 @@ def wedge_intersect_work(window: torch.Tensor, weights: torch.Tensor,
     are sorted with the nil padding last (``core/partition.py``), so a
     merge of W(row) and W(col) takes one int32 compare per distinct entry
     of the two (the padding's nil counts once), not the D × D of the TPU
-    kernel."""
+    kernel.  The count reads the windows, so meta tensors raise."""
+    require_host_figure("wedge_intersect", "the windows' data", window)
     n_edges = row.shape[0]
     n_vertices, d = window.shape
     distinct = 1 + (window[:, 1:] != window[:, :-1]).sum(1)

@@ -16,18 +16,40 @@ a record with ``ok: false`` and the reason.  MWIS cells count one
 sweep-round of the per-PE path (``solvers.sweep_probe_shard_map_fn``) on
 ``--pes`` gloo ranks over an instance at the cell's per-PE shape.
 
+``--abstract`` counts LM, GNN and DLRM cells on meta tensors instead, as
+the reference lowers its cells: the weights from
+``models.common.abstract_params``, the optimizer state from
+``configs.base.opt_abstract``, the inputs from ``configs.base.sds`` (index
+arrays whose data sets work drawn on the host beside them), so a cell
+holds no memory and is counted at its full shape.  Training, decode, GNN
+and DLRM cells are counted in one run at full shape and depth.  Prefill
+cells (a Python tile loop a layer, slow at full depth) are counted at full
+batch, seq and width at the reference's layer probes L 2, 4 and
+extrapolated in L, which is exact for uniform layers without a backward;
+gemma3, whose every 6th layer is global, at L 1, 2, 6, combined by layer
+kind (``analysis.extrapolate.affine``).  MWIS cells are counted on the
+card as without ``--abstract``: a sweep-round's work is its data's.  The
+abstract count is the one to read: an LM, GNN or DLRM record counted by
+probes on a device says ``superseded_by: "abstract"`` and starts its note
+with :data:`SUPERSEDED`.
+
 Per cell and mesh (``single`` 256 chips, ``multi`` 512, ``card`` 1) the
 record holds the counted FLOPs and bytes and the collective bytes split
 evenly over the chips (not a sharded program), the per-device memory,
 the three roofline terms and bottleneck (``analysis.roofline``, H100
 SXM5), the model FLOPs (the reference's formulas), ``run_s`` (the counted
-runs' time) and the card's name and power limit.  One counted run of an
-(arch, shape) serves all three meshes.
+runs' device time; ``host_s``, their host time, on meta), ``counted_on``
+(``meta``, ``cpu``, or the card's name and power limit) and the card's
+name and power limit.  One counted run of an (arch, shape) serves all
+three meshes.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k \\
       --mesh card
   python -m repro_torch.launch.dryrun --all            # a subprocess a cell
+  python -m repro_torch.launch.dryrun --all --abstract
+  python -m repro_torch.launch.dryrun --arch grok-1-314b --shape train_4k \\
+      --abstract                                 # meta: no card needed
   python -m repro_torch.launch.dryrun --list
   python -m repro_torch.launch.dryrun --arch gemma3-1b --shape decode_32k \\
       --device cpu --override d_model=64 ...     # CPU, shrunk by overrides
@@ -174,6 +196,8 @@ def _run_probe(arch, shape: str, tag: str, ov: Dict[str, Any],
     by_op = rec.pop("by_op", {})
     rec["top_ops"] = dict(sorted(by_op.items(), key=lambda kv: -kv[1][2])[
         :TOP_OPS])
+    rec["ops_without_flops"] = sorted(op for op, v in by_op.items()
+                                      if not v[1])
     return dict(tag=tag, point=point, overrides=ov, **rec)
 
 
@@ -188,12 +212,50 @@ def _free(device) -> None:
 #: Archs whose FFN routes tokens to experts at a capacity.
 _MOE = ("qwen3-moe-235b-a22b", "grok-1-314b")
 
+#: The note of an LM, GNN or DLRM cell counted on a device by probes.
+SUPERSEDED = ("superseded by --abstract, the full-shape count on meta: "
+              "these probes extrapolate, with the caveats below")
+
+
+def _layer_kinds(cfg, n_layers: int) -> Dict[str, int]:
+    """Local and global layers of ``n_layers`` under ``cfg``'s interleave
+    (every ``global_every``-th layer global)."""
+    n_global = n_layers // cfg.global_every
+    return {"local_layers": n_layers - n_global, "global_layers": n_global}
+
+
+def _abstract_plan(arch, shape: str, cfg, pinned=()
+                   ) -> Tuple[List[Probe], Dict[str, int]]:
+    """The abstract count's probes and full point.  A prefill cell: the
+    reference's layer probes L 2, 4, or for an interleave of local and
+    global layers L 1, 2 and max(global_every, 3), one point a layer kind;
+    every other cell one run at its full shape (``full``).  A pinned
+    layer count is not probed."""
+    from repro_torch.analysis.extrapolate import FULL_LAYERS
+    from repro_torch.configs import base
+
+    if (arch.family != "lm" or base.LM_SHAPES[shape]["kind"] != "prefill"
+            or "n_layers" in pinned):
+        return [("full", {}, {})], {}
+    full = FULL_LAYERS[arch.arch_id]
+    if cfg.local_window and cfg.global_every > 1:
+        ls = sorted({1, 2, max(cfg.global_every, 3)})
+        return ([(f"L{n}", {"n_layers": n}, _layer_kinds(cfg, n))
+                 for n in ls], _layer_kinds(cfg, full))
+    return ([(f"L{n}", {"n_layers": n}, {"n_layers": n}) for n in (2, 4)],
+            {"n_layers": full})
+
 
 def _caveats(arch, shape: str, point: Dict[str, int]) -> List[str]:
     """Terms the probes cannot extrapolate exactly, and why."""
     from repro_torch.configs import base
 
     out = []
+    if "batch" in point:
+        out.append("at B 1 a reshape is a view where at B >= 2 it is a "
+                   "copy (aten.clone), so the bytes extrapolated from "
+                   "probes at B 1, 2 overshoot (--abstract counts the "
+                   "full batch)")
     if arch.arch_id in _MOE and "batch" in point:
         out.append("MoE capacity = round(tokens*k/E*1.25) is not affine in "
                    "the batch: the dispatch buffers' terms are approximate")
@@ -214,25 +276,58 @@ def _caveats(arch, shape: str, point: Dict[str, int]) -> List[str]:
     return out
 
 
+def _abstract_cell(arch, shape: str, full_build, cli: Dict[str, Any],
+                   seed: int) -> Dict[str, Any]:
+    """``run_cell``'s abstract route: the cell counted on meta at its full
+    shape (prefill: at its layer probes, combined exactly)."""
+    from repro_torch.analysis import extrapolate as ex
+
+    plan, full_point = _abstract_plan(arch, shape, full_build.cfg,
+                                      pinned=tuple(cli))
+    probes = [_run_probe(arch, shape, tag, dict(ov, **cli), pt, "meta",
+                         seed) for tag, ov, pt in plan]
+    kernels = {k: v["op_class"] for p in probes
+               for k, v in p.get("kernels", {}).items()}
+    kinds = sorted({k for p in probes for k in p["collectives"]})
+    total = ex.affine([(p["point"], _terms(p, kernels, kinds))
+                       for p in probes], full_point)
+    total["memory"]["temp_bytes"] = max(p["memory"]["temp_bytes"]
+                                        for p in probes)
+    how = "counted on meta in one run at the full shape"
+    if full_point:
+        how = (f"counted on meta at full batch, seq and width at layer "
+               f"probes {', '.join(t for t, _, _ in plan)}, carried exactly "
+               f"to {full_point} (layers of one kind alike, no backward); "
+               f"temp bytes: the largest probe's")
+    return dict(family=arch.family, probes=probes, total=total,
+                model_flops=full_build.model_flops,
+                note="; ".join(x for x in [full_build.note, how] if x),
+                full_point=full_point, counted_on="meta")
+
+
 def run_cell(arch_id: str, shape: str, device="cuda",
-             overrides: Optional[Dict[str, Any]] = None, seed: int = 0
-             ) -> Dict[str, Any]:
+             overrides: Optional[Dict[str, Any]] = None, seed: int = 0,
+             abstract: bool = False) -> Dict[str, Any]:
     """Count ``arch_id × shape`` at its probe points on ``device`` and
     extrapolate: {probes (their counts), total (the full cell's counted
-    terms), model_flops, note, full_point, family}."""
+    terms), model_flops, note, full_point, family, counted_on}.  With
+    ``abstract`` an LM, GNN or DLRM cell is counted on meta at its full
+    shape instead (``device`` is not used); an MWIS cell as without."""
     from repro_torch import resolve_device
     from repro_torch.analysis import extrapolate as ex
     from repro_torch.configs import registry
 
     import torch
 
-    dev = resolve_device(device)
     arch = registry.get(arch_id)
     if shape not in arch.shapes:
         why = arch.skips.get(shape, "not a shape of this arch")
         raise ValueError(f"{arch_id} × {shape}: {why}")
     cli = dict(overrides or {})
     full_build = arch.build(shape, cli or None)
+    if abstract and arch.family != "mwis":
+        return _abstract_cell(arch, shape, full_build, cli, seed)
+    dev = resolve_device(device)
     plans, full_point = _probe_overrides(arch, shape, pinned=tuple(cli))
     abandoned = []
     for plan in plans:
@@ -267,17 +362,23 @@ def run_cell(arch_id: str, shape: str, device="cuda",
                       plan_full),
         *_caveats(arch, shape, plan_full), *abandoned,
         "temp bytes: the largest probe's" if plan_full else ""] if x)
-    return dict(family=arch.family, probes=probes, total=total,
+    cell = dict(family=arch.family, probes=probes, total=total,
                 model_flops=full_build.model_flops, note=note,
-                full_point=plan_full, pes=int(cli.get("pes", 4)))
+                full_point=plan_full, pes=int(cli.get("pes", 4)),
+                counted_on=dev.type)
+    if arch.family != "mwis":
+        cell.update(superseded_by="abstract", note=SUPERSEDED + "; " + note)
+    return cell
 
 
 def device_info(device) -> Dict[str, Any]:
     """The card as ``nvidia-smi`` names it, with its power limit; or the
-    CPU."""
+    CPU, or meta (no device)."""
     import torch
 
     dev = torch.device(device)
+    if dev.type == "meta":
+        return dict(platform="meta")
     if dev.type != "cuda":
         return dict(platform="cpu")
     smi = subprocess.run(
@@ -331,32 +432,48 @@ def mesh_record(arch_id: str, shape: str, mesh_kind: str,
     coll = ("collectives: the per-PE path's counted exchanges"
             if cell["family"] == "mwis" else
             "collectives: none counted (one card runs the step unsharded)")
-    return dict(
-        arch=arch_id, shape=shape, mesh=mesh_kind, n_chips=chips, ok=True,
-        run_s=sum(p["run_s"] for p in cell["probes"]),
-        memory=dev_terms["memory"], cost=cost,
-        collectives=dev_terms["collectives"],
-        transfer_bytes=dev_terms["transfer_bytes"],
-        roofline=roof.report(),
-        kernels=terms["kernels"],
-        note="; ".join([cell["note"], split, coll]),
-        full_point=cell["full_point"],
-        probes=[dict(tag=p["tag"], point=p["point"], run_s=p["run_s"])
-                for p in cell["probes"]],
-        device=device,
-        overrides={k: str(v) for k, v in (overrides or {}).items()},
-    )
+    clock = _clock(cell["probes"][0])
+    counted_on = cell.get("counted_on", "cuda")
+    if counted_on == "cuda":
+        counted_on = device.get("nvidia_smi") or device.get("kind", "cuda")
+    return {
+        **dict(arch=arch_id, shape=shape, mesh=mesh_kind, n_chips=chips,
+               ok=True),
+        clock: sum(p[clock] for p in cell["probes"]),
+        **dict(
+            memory=dev_terms["memory"], cost=cost,
+            collectives=dev_terms["collectives"],
+            transfer_bytes=dev_terms["transfer_bytes"],
+            roofline=roof.report(),
+            kernels=terms["kernels"],
+            note="; ".join([cell["note"], split, coll]),
+            full_point=cell["full_point"],
+            probes=[{"tag": p["tag"], "point": p["point"], clock: p[clock]}
+                    for p in cell["probes"]],
+            counted_on=counted_on,
+            **({"superseded_by": cell["superseded_by"]}
+               if "superseded_by" in cell else {}),
+            device=device,
+            overrides={k: str(v) for k, v in (overrides or {}).items()},
+        )}
+
+
+def _clock(rec: Dict[str, Any]) -> str:
+    """The time a record or probe carries: ``run_s`` (a device's run) or
+    ``host_s`` (an abstract count, on the host's clock)."""
+    return "host_s" if "host_s" in rec else "run_s"
 
 
 def summary_line(rec: Dict[str, Any]) -> str:
-    """flops, bytes, t_bound, bottleneck, run_s and roofline_fraction of
-    a record, per device."""
+    """flops, bytes, t_bound, bottleneck, run_s (host_s on meta) and
+    roofline_fraction of a record, per device."""
     rf = rec["roofline"]
     t_bound = max(rf["t_compute_s"], rf["t_memory_s"], rf["t_collective_s"])
+    clock = _clock(rec)
     return (f"flops/dev={rec['cost']['flops']:.6e} "
             f"bytes/dev={rec['cost']['bytes_accessed']:.6e} "
             f"t_bound={t_bound:.6e} s bottleneck={rf['bottleneck']} "
-            f"run_s={rec['run_s']:.3f} "
+            f"{clock}={rec[clock]:.3f} "
             f"roofline_fraction={rf['roofline_fraction']:.6f}")
 
 
@@ -387,35 +504,53 @@ def _failed(arch_id, shape, mesh_kind, error, **extra) -> Dict[str, Any]:
                 error=error, **extra)
 
 
+def _run_one(args, passthrough: List[str], arch_id: str, shape: str
+             ) -> bool:
+    """One cell in a subprocess; its records (or failed ones) written and
+    its result printed.  True if it counted."""
+    fns = [_path(args.out, arch_id, shape, m, args.tag) for m in MESH_CHIPS]
+    if all(os.path.exists(fn) for fn in fns) and not args.force:
+        print(f"[skip] {arch_id} × {shape}", flush=True)
+        return True
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--arch", arch_id, "--shape", shape, "--out", args.out,
+           "--mesh", "card", *passthrough]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=args.timeout)
+        err = None if r.returncode == 0 else r.stderr[-4000:]
+    except subprocess.TimeoutExpired:
+        err = "timeout"
+    if err is None:
+        print(f"[cell] {arch_id} × {shape}: ok" + "".join(
+            f"\n  {line}" for line in r.stdout.splitlines()
+            if line.startswith("[card]")), flush=True)
+        return True
+    for m, fn in zip(MESH_CHIPS, fns):
+        _write(fn, _failed(arch_id, shape, m, err))
+    print(f"[cell] {arch_id} × {shape}: FAILED: "
+          f"{err.strip().splitlines()[-1] if err else ''}", flush=True)
+    return False
+
+
 def _run_all(args, passthrough: List[str]) -> None:
+    """Every cell, a subprocess each.  With ``--abstract`` the meta cells
+    (host work, one core each, no device) run several at a time, two
+    cores left to the host, then the MWIS cells one at a time on the
+    device."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import registry
+
     pairs = list(dict.fromkeys((a, s) for a, s, _ in all_cells()))
-    failures = 0
-    for arch_id, shape in pairs:
-        fns = [_path(args.out, arch_id, shape, m, args.tag)
-               for m in MESH_CHIPS]
-        if all(os.path.exists(fn) for fn in fns) and not args.force:
-            print(f"[skip] {arch_id} × {shape}")
-            continue
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-               "--arch", arch_id, "--shape", shape, "--out", args.out,
-               "--mesh", "card", *passthrough]
-        print(f"[cell] {arch_id} × {shape} ...", flush=True)
-        try:
-            r = subprocess.run(cmd, capture_output=True, text=True,
-                               timeout=args.timeout)
-            err = None if r.returncode == 0 else r.stderr[-4000:]
-        except subprocess.TimeoutExpired:
-            err = "timeout"
-        if err is None:
-            print("  ok" + "".join(
-                f"\n  {line}" for line in r.stdout.splitlines()
-                if line.startswith("[card]")), flush=True)
-            continue
-        failures += 1
-        for m, fn in zip(MESH_CHIPS, fns):
-            _write(fn, _failed(arch_id, shape, m, err))
-        print(f"  FAILED: {err.strip().splitlines()[-1] if err else ''}",
-              flush=True)
+    pooled = [c for c in pairs if args.abstract
+              and registry.get(c[0]).family != "mwis"]
+    with ThreadPoolExecutor(max(1, (os.cpu_count() or 3) - 2)) as pool:
+        ok = list(pool.map(lambda c: _run_one(args, passthrough, *c),
+                           pooled))
+    ok += [_run_one(args, passthrough, *c) for c in pairs
+           if c not in pooled]
+    failures = ok.count(False)
     print(f"dry-run complete; {failures} failures")
     sys.exit(1 if failures else 0)
 
@@ -439,6 +574,9 @@ def main() -> None:
                     help="config override key=value (JSON values)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--abstract", action="store_true",
+                    help="count LM, GNN and DLRM cells on meta tensors at "
+                         "their full shape (MWIS cells as without)")
     ap.add_argument("--pes", type=int, default=4,
                     help="MWIS cells: gloo ranks, one a PE")
     ap.add_argument("--seed", type=int, default=0)
@@ -453,6 +591,7 @@ def main() -> None:
         passthrough = ["--device", args.device, "--pes", str(args.pes),
                        "--seed", str(args.seed)]
         passthrough += ["--tag", args.tag] if args.tag else []
+        passthrough += ["--abstract"] if args.abstract else []
         passthrough += [x for kv in args.override for x in ("--override", kv)]
         _run_all(args, passthrough)
         return
@@ -472,7 +611,7 @@ def main() -> None:
         cli_ov.setdefault("pes", args.pes)
     try:
         cell = run_cell(args.arch, args.shape, args.device, cli_ov,
-                        seed=args.seed)
+                        seed=args.seed, abstract=args.abstract)
     except Exception:
         traceback.print_exc()
         for m in MESH_CHIPS:
@@ -480,13 +619,16 @@ def main() -> None:
                    _failed(args.arch, args.shape, m,
                            traceback.format_exc()[-4000:]))
         sys.exit(1)
-    info = device_info(args.device)
+    info = device_info("meta" if cell["counted_on"] == "meta"
+                       else args.device)
     for m in MESH_CHIPS:
         for p in cell["probes"]:
             rec = mesh_record(args.arch, args.shape, m, cell, p, info,
                               cli_ov)
-            rec.update(probe_point=p["point"], run_s=p["run_s"],
-                       top_ops=p["top_ops"])
+            clock = _clock(p)
+            rec.update({"probe_point": p["point"], clock: p[clock],
+                        "top_ops": p["top_ops"],
+                        "ops_without_flops": p["ops_without_flops"]})
             _write(_path(args.out, args.arch, args.shape, m, args.tag,
                          p["tag"]), rec)
         if args.probe:

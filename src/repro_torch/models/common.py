@@ -3,7 +3,8 @@
 The port of ``repro/models/common.py``.  A model's weights
 are a nested dict of tensors, each described by a :class:`ParamSpec`
 (shape, torch dtype, initializer, scale); :func:`init_params` materializes
-them on a device from an explicit ``torch.Generator``, and
+them on a device from an explicit ``torch.Generator`` (:func:`abstract_params`
+as meta tensors), and
 :func:`register_tree` hangs such a tree on an ``nn.Module`` so its
 ``state_dict`` keys are the reference's tree paths joined with ``.``.
 
@@ -74,6 +75,19 @@ def init_params(specs: ParamTree, generator: torch.Generator,
     def walk(tree: ParamTree) -> ParamTree:
         return {k: walk(tree[k]) if isinstance(tree[k], dict)
                 else one(tree[k]) for k in sorted(tree)}
+
+    return walk(specs)
+
+
+def abstract_params(specs: ParamTree) -> ParamTree:
+    """``specs`` as meta tensors of each leaf's shape and dtype, in the
+    tree :func:`init_params` returns: the weights of the dry-run's
+    abstract count, which hold no memory (the reference's
+    ``abstract_params``)."""
+    def walk(tree: ParamTree) -> ParamTree:
+        return {k: walk(tree[k]) if isinstance(tree[k], dict)
+                else torch.empty(tree[k].shape, dtype=tree[k].dtype,
+                                 device="meta") for k in sorted(tree)}
 
     return walk(specs)
 

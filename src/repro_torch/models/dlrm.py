@@ -99,7 +99,8 @@ class DLRM(C.TreeModel):
 MODEL = DLRM
 
 
-def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
+                  host_idx: torch.Tensor | None = None) -> torch.Tensor:
     """Single-hot bag == gather; [B] int32 → [B, dim], as a bag of one row
     through the ``embedding_bag`` op (the kernel on CUDA tensors).  The
     reference's ``jnp.take``: an id in [-V, -1] wraps (the op wraps it),
@@ -107,11 +108,14 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     row, here by the weight NaN (NaN x any row); every other weight is
     1.0, so in-range rows come back exact.  The table's gradient is
     ``take``'s: the op's backward drops such an id before it reads the
-    weight, so the NaN stays in the forward."""
+    weight, so the NaN stays in the forward.  ``host_idx``, a CPU copy
+    of ``idx`` (a batch's ``"host"`` ids), goes to the op's work formula
+    as a view: no host op of it is counted as the device's work."""
     rows = idx.contiguous()[:, None]
     n = table.shape[0]
     wgt = torch.where((rows >= -n) & (rows < n), 1.0, float("nan"))
-    return EB.embedding_bag(table, rows, wgt.to(torch.float32))
+    return EB.embedding_bag(table, rows, wgt.to(torch.float32),
+                            None if host_idx is None else host_idx[:, None])
 
 
 def _mlp(params: DLRM, prefix: str, x: torch.Tensor, n: int) -> torch.Tensor:
@@ -125,12 +129,16 @@ def _mlp(params: DLRM, prefix: str, x: torch.Tensor, n: int) -> torch.Tensor:
 
 def forward(params: DLRM, batch: Dict[str, torch.Tensor],
             cfg: DLRMConfig) -> torch.Tensor:
-    """batch: dense [B, 13] f32, sparse [B, 26] int32 → logits [B]."""
+    """batch: dense [B, 13] f32, sparse [B, 26] int32 → logits [B]; a
+    host copy of sparse under ``batch["host"]`` goes to the lookups' work
+    formula."""
     dense, sparse = batch["dense"], batch["sparse"]
+    host = batch.get("host", {}).get("sparse")
     d = _mlp(params, "bot", dense.to(cfg.dtype), len(cfg.bot_mlp) - 1)
     d = C.relu(d)                                     # [B, dim]
     embs = [
-        embedding_bag(getattr(params.tables, f"t{i}"), sparse[:, i])
+        embedding_bag(getattr(params.tables, f"t{i}"), sparse[:, i],
+                      None if host is None else host[:, i])
         for i in range(cfg.n_sparse)
     ]
     feats = torch.stack([d] + embs, dim=1)                # [B, F, dim]

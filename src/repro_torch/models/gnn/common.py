@@ -18,6 +18,13 @@ away, and a masked entry's payload is 0.  It also keeps the padding, which
 sits on one row (the sentinel, or DimeNet's clamped ``E - 1``), out of the
 row blocks, where it would set a block's slot count.
 
+A batch may carry host copies of its index arrays under ``"host"``
+(:func:`host_view`): the dry-run's abstract count hands the model meta
+tensors, whose data the host cannot pack, and the copies they were made
+from.  The plans are then packed from the copies and go to the batch's
+device, meta included; without copies they are packed from the batch's
+own tensors, as always.
+
 The elementwise functions follow the reference op for op.
 """
 
@@ -42,20 +49,31 @@ R_BLK = 8
 @dataclasses.dataclass(frozen=True)
 class ScatterPlan:
     """One segment array packed for the kernel: ``n`` output rows,
-    ``n_entries`` entries, row blocks of ``r_blk`` rows."""
+    ``n_entries`` entries, row blocks of ``r_blk`` rows, ``n_live`` live
+    slots (known at packing: the kernel formula's figure)."""
     edge_perm: torch.Tensor   # [n_blocks, E_BLK] i32 entry ids
     lrow: torch.Tensor        # [n_blocks, E_BLK] i32 local rows (r_blk: pad)
     gather: torch.Tensor      # [n_entries] i64: the entry's row, n if dead
     n: int
     n_entries: int
+    n_live: int
     r_blk: int = R_BLK
+
+
+def host_view(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """``batch`` with its host copies (``batch["host"]``, CPU tensors) in
+    place of the tensors they copy: what the plans are packed from."""
+    host = batch.get("host")
+    return {**batch, **host} if host else batch
 
 
 def scatter_plan(seg: torch.Tensor, n: int,
                  live: Optional[torch.Tensor] = None, *,
-                 r_blk: int = R_BLK) -> ScatterPlan:
+                 r_blk: int = R_BLK,
+                 device: Optional[torch.device] = None) -> ScatterPlan:
     """Pack the live entries of ``seg`` (``0 <= seg < n`` and ``live``)
-    on the host; the plan's tensors go to ``seg``'s device."""
+    on the host; the plan's tensors go to ``device`` (default ``seg``'s;
+    a meta device takes their shapes)."""
     s = seg.detach().cpu().numpy().astype(np.int64)
     keep = (s >= 0) & (s < n)
     if live is not None:
@@ -68,12 +86,12 @@ def scatter_plan(seg: torch.Tensor, n: int,
         n_blocks = (n + r_blk - 1) // r_blk
         perm = np.zeros((n_blocks, 1), np.int64)
         lrow = np.full((n_blocks, 1), r_blk, np.int32)
-    dev = seg.device
+    dev = seg.device if device is None else device
     return ScatterPlan(
         edge_perm=torch.from_numpy(perm.astype(np.int32)).to(dev),
         lrow=torch.from_numpy(lrow).to(dev),
         gather=torch.from_numpy(np.where(keep, s, n)).to(dev),
-        n=n, n_entries=int(s.shape[0]), r_blk=r_blk)
+        n=n, n_entries=int(s.shape[0]), n_live=int(ids.size), r_blk=r_blk)
 
 
 class _ScatterSum(torch.autograd.Function):
@@ -82,7 +100,7 @@ class _ScatterSum(torch.autograd.Function):
         ctx.plan, ctx.shape = plan, vals.shape
         flat = vals.reshape(plan.n_entries, -1).contiguous()
         out = segment_sum_coo(flat, plan.edge_perm, plan.lrow, plan.n,
-                              r_blk=plan.r_blk)
+                              r_blk=plan.r_blk, n_live=plan.n_live)
         return out.reshape((plan.n,) + vals.shape[1:])
 
     @staticmethod

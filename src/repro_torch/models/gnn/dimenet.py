@@ -87,15 +87,17 @@ def _triplet_ends(batch: Dict[str, Any], E: int):
 
 
 def plans(batch: Dict[str, Any], cfg: DimeNetConfig) -> Dict[str, Any]:
-    """The forward's scatter plans (host packing): ``col``'s live edges,
-    ``to``'s live triplets, ``batch_id``."""
-    n = batch["node_feat"].shape[0]
-    E = batch["row"].shape[0]
-    _, to, tmask = _triplet_ends(batch, E)
-    return {"col": G.scatter_plan(batch["col"], n, batch["row"] < n),
-            "to": G.scatter_plan(to, E, tmask),
-            "batch_id": G.scatter_plan(batch["batch_id"],
-                                       batch["n_graphs"])}
+    """The forward's scatter plans (host packing, from the batch's host
+    copies where it has them): ``col``'s live edges, ``to``'s live
+    triplets, ``batch_id``."""
+    n, dev = batch["node_feat"].shape[0], batch["node_feat"].device
+    hb = G.host_view(batch)
+    E = hb["row"].shape[0]
+    _, to, tmask = _triplet_ends(hb, E)
+    return {"col": G.scatter_plan(hb["col"], n, hb["row"] < n, device=dev),
+            "to": G.scatter_plan(to, E, tmask, device=dev),
+            "batch_id": G.scatter_plan(hb["batch_id"], batch["n_graphs"],
+                                       device=dev)}
 
 
 def forward(params: DimeNet, batch: Dict[str, Any],

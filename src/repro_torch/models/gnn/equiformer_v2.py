@@ -131,14 +131,16 @@ def _chunks(batch: Dict[str, Any], cfg: EquiformerV2Config):
 
 
 def plans(batch: Dict[str, Any], cfg: EquiformerV2Config) -> Dict[str, Any]:
-    """The forward's scatter plans (host packing): each edge chunk's
-    ``col`` (live edges) and ``batch_id``."""
-    n = batch["node_feat"].shape[0]
-    row_c, col_c = _chunks(batch, cfg)
-    return {"chunks": [G.scatter_plan(c, n, r < n)
+    """The forward's scatter plans (host packing, from the batch's host
+    copies where it has them): each edge chunk's ``col`` (live edges) and
+    ``batch_id``."""
+    n, dev = batch["node_feat"].shape[0], batch["node_feat"].device
+    hb = G.host_view(batch)
+    row_c, col_c = _chunks(hb, cfg)
+    return {"chunks": [G.scatter_plan(c, n, r < n, device=dev)
                        for r, c in zip(row_c, col_c)],
-            "batch_id": G.scatter_plan(batch["batch_id"],
-                                       batch["n_graphs"])}
+            "batch_id": G.scatter_plan(hb["batch_id"], batch["n_graphs"],
+                                       device=dev)}
 
 
 def forward(params: EquiformerV2, batch: Dict[str, Any],

@@ -67,9 +67,11 @@ MODEL = GatedGCN
 
 
 def plans(batch: Dict[str, Any], cfg: GatedGCNConfig) -> Dict[str, Any]:
-    """The forward's scatter plans (host packing): ``col``'s live edges."""
-    n = batch["node_feat"].shape[0]
-    return {"col": G.scatter_plan(batch["col"], n, batch["row"] < n)}
+    """The forward's scatter plans (host packing, from the batch's host
+    copies where it has them): ``col``'s live edges."""
+    n, dev = batch["node_feat"].shape[0], batch["node_feat"].device
+    hb = G.host_view(batch)
+    return {"col": G.scatter_plan(hb["col"], n, hb["row"] < n, device=dev)}
 
 
 def forward(params: GatedGCN, batch: Dict[str, Any],

@@ -59,9 +59,11 @@ MODEL = GraphSAGE
 
 
 def plans(batch: Dict[str, Any], cfg: GraphSAGEConfig) -> Dict[str, Any]:
-    """The forward's scatter plans (host packing): ``col``'s live edges."""
-    n = batch["node_feat"].shape[0]
-    return {"col": G.scatter_plan(batch["col"], n, batch["row"] < n)}
+    """The forward's scatter plans (host packing, from the batch's host
+    copies where it has them): ``col``'s live edges."""
+    n, dev = batch["node_feat"].shape[0], batch["node_feat"].device
+    hb = G.host_view(batch)
+    return {"col": G.scatter_plan(hb["col"], n, hb["row"] < n, device=dev)}
 
 
 def forward(params: GraphSAGE, batch: Dict[str, Any],

@@ -811,7 +811,7 @@ def test_new_kernels_reject_other_dtypes(cuda):
                                      device=cuda))
 
 
-def _plain_lookup(table, idx):
+def _plain_lookup(table, idx, host_idx=None):
     """The DLRM lookup through the kernel's plain version on the card."""
     rows = idx.contiguous()[:, None]
     return embedding_bag_ref(table, rows, torch.ones(rows.shape,
@@ -1246,6 +1246,47 @@ def test_work_count_on_cuda_matches_cpu(cuda, arch_id, module, shape, cut):
     assert {k: v["units"] for k, v in card["kernels"].items()} == launched
     assert card["memory"]["temp_bytes"] is not None
     assert cpu["memory"]["temp_bytes"] is None
+
+
+@pytest.mark.parametrize("arch_id,module,shape,cut", [
+    ("gemma3-1b", "gemma3_1b", "train_4k", dict(seq=64, batch=2)),
+    ("gemma3-1b", "gemma3_1b", "decode_32k", dict(seq=64, batch=2)),
+    ("qwen3-moe-235b-a22b", "qwen3_moe_235b", "train_4k",
+     dict(seq=32, batch=2)),
+    ("dlrm-mlperf", "dlrm_mlperf", "train_batch", {}),
+    ("dlrm-mlperf", "dlrm_mlperf", "retrieval_cand", {}),
+    ("graphsage-reddit", "graphsage_reddit", "full_graph_sm", {}),
+    ("dimenet", "dimenet_cfg", "molecule", {}),
+])
+def test_meta_count_matches_cuda(cuda, arch_id, module, shape, cut):
+    """The dry-run's abstract count: a SMOKE cell's step counted on meta
+    and on the card, from the same index arrays drawn on the host, gives
+    the same FLOPs, bytes, transfer bytes (the GNN
+    plans' uploads), collectives and kernel units / operations / bytes;
+    on the card each kernel's units are its launches, and the card
+    reports its storage tally beside its allocator's peak."""
+    import importlib
+
+    from repro_torch.analysis import count
+    from repro_torch.configs import registry
+
+    smoke = importlib.import_module(f"repro_torch.configs.{module}").SMOKE
+    ov = {f.name: getattr(smoke, f.name) for f in dataclasses.fields(smoke)
+          if f.name != "name"}
+    built = registry.get(arch_id).build(shape, {**ov, **cut})
+    _, meta = count.measure(built.fn, built.make_inputs("meta", 0), "meta")
+    inputs = built.make_inputs(cuda, 0)
+    before = {k: kernels.launch_count(k) for k in kernels.KERNELS}
+    _, card = count.measure(built.fn, inputs, cuda, tally=True)
+    launched = {k: n for k in kernels.KERNELS
+                if (n := kernels.launch_count(k) - before[k])}
+    for k in ("flops", "bytes", "transfer_bytes", "collectives", "kernels"):
+        assert card[k] == meta[k], (k, card[k], meta[k])
+    assert {k: v["units"] for k, v in card["kernels"].items()} == launched
+    assert meta["memory"]["temp_bytes"] > 0
+    assert card["memory"]["tally_temp_bytes"] > 0
+    assert card["memory"]["argument_bytes"] == meta["memory"][
+        "argument_bytes"]
 
 
 def test_dryrun_cell_on_cuda(cuda, tmp_path):

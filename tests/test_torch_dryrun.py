@@ -133,6 +133,25 @@ def test_counter_matmul_add_and_view():
     assert (wc.flops, wc.bytes, wc.by_op) == (0, 0, {})
 
 
+def test_counter_matrix_vector_and_dot_products():
+    """``mv``, ``addmv``, ``dot`` and ``vdot``, which torch's formula
+    registry lacks, count 2 · multiply-adds (the retrieval score
+    ``cand @ d[0]`` is an ``mv``)."""
+    m, v, w = torch.randn(7, 5), torch.randn(5), torch.randn(5)
+    y = torch.randn(7)
+    cases = [(lambda: m @ v, "aten.mv.default", 2 * 7 * 5),
+             (lambda: torch.addmv(y, m, v), "aten.addmv.default", 2 * 7 * 5),
+             (lambda: torch.dot(v, w), "aten.dot.default", 2 * 5),
+             (lambda: torch.vdot(v, w), "aten.vdot.default", 2 * 5)]
+    for call, op, flops in cases:
+        with count.WorkCounter() as wc:
+            call()
+        assert wc.flops == flops and wc.by_op[op][1] == flops, op
+    from torch.utils.flop_counter import flop_registry
+
+    assert torch.ops.aten.mv not in flop_registry   # torch's stays as is
+
+
 def _ops_cases():
     rng = np.random.default_rng(0)
     row = np.sort(rng.integers(0, 40, 300)).astype(np.int32)

@@ -4,7 +4,8 @@ descent on, pipelined, and sharded over four CPU devices), the DLRM and
 LM models with the data pipeline, the optimizers, the serving CLIs (every
 serving arch), the training CLI, DLRM's and the GNNs' smoke train steps,
 the dry-run (its work counter, configs, registry, probes and tables),
-gradient compression and the per-PE path's spawned ranks (the dry-run's
+gradient compression, the dry-run's abstract count on meta tensors (a GNN,
+DLRM and a prefill cell) and the per-PE path's spawned ranks (the dry-run's
 sweep-round probe and the hierarchical psum among them) —
 loads neither JAX nor the reference package,
 an entry point without ``device=`` refuses to run when no GPU is visible,
@@ -169,6 +170,18 @@ SCRIPT = textwrap.dedent("""
     assert rec["ok"] and rec["roofline"]["bottleneck"] in (
         "compute", "memory")
     assert "FAILED" not in report.roofline_table([rec])
+    for arch, shape, ov, kernel, units in (
+            ("gatedgcn", "molecule", dict(d_hidden=16, n_layers=2),
+             "segment_sum", 4),
+            ("dlrm-mlperf", "train_batch", dict(row_cap=1000),
+             "embedding_bag_backward", 26)):
+        ab = dryrun.run_cell(arch, shape, overrides=ov, abstract=True)
+        assert ab["counted_on"] == "meta", ab
+        assert ab["total"]["kernels"][kernel]["units"] == units, ab
+    ab = dryrun.run_cell("gemma3-1b", "prefill_32k", abstract=True,
+                         overrides=dict(d_model=32, n_heads=2, d_head=16,
+                                        d_ff=64, vocab=64, seq=32, batch=2))
+    assert [p["tag"] for p in ab["probes"]] == ["L1", "L2", "L6"]
     with count.WorkCounter() as wc:
         compression.compress_int8_ef({"w": torch.ones(4)},
                                      compression.ef_init({"w": torch.ones(4)}))
