@@ -207,12 +207,14 @@ continues):
                and each kernel's units, operations and bytes equal, and on
                the card each kernel's units equal to its launches.  Then
                ``gemma3-1b × decode_32k`` and ``dlrm-mlperf × serve_p99``
-               at full width, probes and extrapolation as the CLI runs
-               them: flops, bytes, t_bound, bottleneck, run_s and roofline
-               fraction on the ``card`` mesh; phase 17's sweep-round probe
-               (run on its four gloo ranks: (w, status, offset) equal to
-               the union path's first sweep-round) as an MWIS record;
-               the abstract count (``--abstract``: meta tensors) held to
+               at full size as the CLI counts them by default (on meta;
+               a record counted elsewhere, marked ``superseded_by`` or
+               launching a kernel fails): flops, transcendentals and
+               flops by op class, bytes, t_bound, bottleneck, host_s and
+               roofline fraction on the ``card`` mesh; phase 17's
+               sweep-round probe (run on its four gloo ranks: (w, status,
+               offset) equal to the union path's first sweep-round) as an
+               MWIS record; the abstract count (meta tensors) held to
                the card, every term equal and each kernel's units its
                launches, at the three SMOKE cells and ``DRYRUN_META``'s
                full-width probe points (gemma3-1b and qwen3-moe
@@ -222,7 +224,11 @@ continues):
                temp bytes against the card's peak (reported, not gated);
                then ``DRYRUN_META_ONLY``, two cells that fit no card
                (gatedgcn ``ogb_products``, qwen3-moe ``train_4k``, full
-               width, 2 layers), on meta alone;
+               width, 2 layers), on meta alone, the training cell also
+               with each layer's weights indexed from the stack: its
+               bytes and ``select_backward`` bytes both ways (no more
+               FLOPs, fewer bytes and no ``select_backward`` with the
+               layers cut by ``unbind``, or it fails);
                ``compress_int8_ef`` / ``topk_ef`` on CUDA tensors bit for
                bit with the CPU; ``hierarchical_psum`` on 4 gloo ranks (2
                pods x 2 data) on cuda:0 against a flat ``all_reduce``.
@@ -302,12 +308,17 @@ GNN_TRAIN = dict(steps=6, short_steps=3, lr=3e-4, check_seeds=64)
 
 #: Phase 21: the dry-run's cells counted on the card and on the CPU in one
 #: process (SMOKE widths, inputs made on the CPU and copied to the card;
-#: the LM's seq and batch cut so its CPU run takes seconds) and its two
-#: full-width cells (``launch/dryrun.py``'s probes).
+#: the LM's seq and batch cut so its CPU run takes seconds) and two
+#: full-size cells as ``launch.dryrun`` counts them by default (on meta).
 DRYRUN_SMOKE = (("gemma3-1b", "train_4k", dict(seq=64, batch=2)),
                 ("dlrm-mlperf", "train_batch", {}),
                 ("graphsage-reddit", "full_graph_sm", {}))
 DRYRUN_FULL = (("gemma3-1b", "decode_32k"), ("dlrm-mlperf", "serve_p99"))
+#: Phase 21: the ``DRYRUN_FULL`` cell also counted by the card probe route
+#: (``launch.dryrun --probes``, ``run_cell(abstract=False)``) at full width:
+#: probes on the card, the plan's out-of-memory fallback, the multilinear
+#: extrapolation, each kernel's counted units against its launches.
+DRYRUN_CARD_ROUTE = ("dlrm-mlperf", "serve_p99")
 #: Phase 21: one probe point of a full-width cell per family that the card
 #: counts, counted on meta (the abstract count) and on the card from the
 #: same host-drawn index arrays: every term must be equal.
@@ -316,9 +327,12 @@ DRYRUN_META = (("gemma3-1b", "decode_32k", dict(n_layers=2)),
                ("graphsage-reddit", "minibatch_lg", {}),
                ("dlrm-mlperf", "train_batch", dict(row_cap=1_000_000)))
 #: Phase 21: cells that fit no card, counted on meta alone at full width
-#: and 2 layers.
+#: and 2 layers; the training cell also with each layer's weights indexed
+#: from the stack (``STACKED_CELL``), the slicing ``common.layer_slices``
+#: replaced, to show the ``select_backward`` bytes it cost.
 DRYRUN_META_ONLY = (("gatedgcn", "ogb_products", dict(n_layers=2)),
                     ("qwen3-moe-235b-a22b", "train_4k", dict(n_layers=2)))
+STACKED_CELL = ("qwen3-moe-235b-a22b", "train_4k")
 
 #: Phase 14's two-shard and ``--descent auto`` runs serve the first this
 #: many requests of the 192-request stream (its other runs, the whole
@@ -3041,8 +3055,9 @@ def smoke_overrides(arch_id: str) -> dict:
 def count_card_and_cpu(dev, arch_id: str, shape: str, cut: dict,
                        seed: int) -> dict:
     """Phase 21: one SMOKE cell's step counted on the card and on the CPU
-    from the same inputs (made on the CPU): FLOPs, bytes, collectives and
-    each kernel's units, operations and bytes must be equal, and on the
+    from the same inputs (made on the CPU): FLOPs (and by class),
+    transcendentals, bytes, collectives and each kernel's units,
+    operations and bytes must be equal, and on the
     card each kernel's units its launches.  Returns the card's launches."""
     import torch
 
@@ -3059,7 +3074,8 @@ def count_card_and_cpu(dev, arch_id: str, shape: str, cut: dict,
     _, card = count.measure(built.fn, card_inputs, dev)
     launches = {k: v for k, v in launch_counts().items() if v}
     _, cpu = count.measure(built.fn, inputs, "cpu")
-    keys = ("flops", "bytes", "collectives", "kernels")
+    keys = ("flops", "transcendentals", "flops_by_class", "bytes",
+            "collectives", "kernels")
     label = f"{arch_id} × {shape} SMOKE {cut or ''}".strip()
     if any(card[k] != cpu[k] for k in keys):
         diff = {op: (card["by_op"].get(op), cpu["by_op"].get(op))
@@ -3085,9 +3101,10 @@ def count_card_and_meta(dev, arch_id: str, shape: str, ov: dict,
                         seed: int, label: str) -> tuple:
     """Phase 21: a cell counted on meta (``configs.base``'s abstract
     inputs) and on the card (the same index arrays, drawn on the host and
-    moved there): FLOPs, bytes, transfer bytes, collectives and each
-    kernel's units, operations and bytes must be equal, and on the card
-    each kernel's units its launches.  Returns (the card's launches, the
+    moved there): FLOPs (and by class), transcendentals, bytes, transfer
+    bytes, collectives and each kernel's units, operations and bytes must
+    be equal, and on the card each kernel's units its launches.  Returns
+    (the card's launches, the
     meta temp bytes' gap to the card's peak, relative)."""
     import torch
 
@@ -3104,7 +3121,8 @@ def count_card_and_meta(dev, arch_id: str, shape: str, ov: dict,
     del inputs, out
     launches = {k: v - before[k] for k, v in launch_counts().items()
                 if v - before[k]}
-    keys = ("flops", "bytes", "transfer_bytes", "collectives", "kernels")
+    keys = ("flops", "transcendentals", "flops_by_class", "bytes",
+            "transfer_bytes", "collectives", "kernels")
     if any(card[k] != meta[k] for k in keys):
         diff = {op: (card["by_op"].get(op), meta["by_op"].get(op))
                 for op in set(card["by_op"]) | set(meta["by_op"])
@@ -3161,14 +3179,72 @@ def abstract_phase(dev, opts) -> dict:
                                                            opts.seed),
                                "meta")
         phase("dryrun", f"{arch_id} × {shape} {ov} on meta (fits no "
-                        f"card): flops {rec['flops']} bytes {rec['bytes']} "
+                        f"card): flops {rec['flops']} transcendentals "
+                        f"{rec['transcendentals']} (by class "
+                        f"{rec['flops_by_class']}) bytes {rec['bytes']} "
                         f"transfer bytes {rec['transfer_bytes']} kernels "
                         f"{rec['kernels']} temp bytes "
                         f"{rec['memory']['temp_bytes']} argument bytes "
                         f"{rec['memory']['argument_bytes']}; host_s "
                         f"{rec['host_s']:.1f} (inputs and count "
                         f"{time.time() - t0:.1f} s)")
+        if (arch_id, shape) == STACKED_CELL:
+            stacked_gradient_bytes(built, rec, opts.seed,
+                                   f"{arch_id} × {shape} {ov}")
     return launched
+
+
+def indexed_layer_slices(stacked: dict) -> list:
+    """Layer i's weights indexed from each stacked ``[L, ...]`` weight,
+    ``p[i]``: the slicing ``models.common.layer_slices`` replaced (each
+    layer's backward a ``select_backward`` writing a whole ``[L, ...]``
+    gradient)."""
+    n = next(iter(stacked.values())).shape[0]
+    return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+
+
+def stacked_gradient_bytes(built, rec: dict, seed: int, label: str) -> None:
+    """Phase 21: a training cell's meta count (``rec``, its stacked
+    weights cut once a forward by ``torch.unbind``) against the same count
+    with each layer's weights indexed from the stack: the bytes of both,
+    the ``select_backward`` bytes, and what ``unbind``'s backward (a
+    ``stack``) moves instead.  With the layers cut once there must be no
+    ``select_backward`` left, fewer bytes, and no more FLOPs (the indexed
+    gradients' sum adds L [L, ...] tensors: O(L^2) FLOPs too)."""
+    from repro_torch.analysis import count
+    from repro_torch.models import common as MC
+
+    slices = MC.layer_slices
+    MC.layer_slices = indexed_layer_slices
+    try:
+        _, idx = count.measure(built.fn, built.make_inputs("meta", seed),
+                               "meta")
+    finally:
+        MC.layer_slices = slices
+
+    def op_bytes(r, name):
+        return r["by_op"].get(f"aten.{name}.default", [0, 0, 0])[2]
+
+    sel, sel_idx = (op_bytes(r, "select_backward") for r in (rec, idx))
+    if sel or not sel_idx or idx["flops"] < rec["flops"] \
+            or rec["bytes"] >= idx["bytes"]:
+        fail(f"dryrun: {label}: layer slices by unbind: bytes "
+             f"{rec['bytes']}, select_backward {sel}; indexed: bytes "
+             f"{idx['bytes']}, select_backward {sel_idx}; flops "
+             f"{rec['flops']} / {idx['flops']}")
+    phase("dryrun", f"{label} on meta, stacked weights' gradients: bytes "
+                    f"{rec['bytes']} with the layers cut by unbind (stack "
+                    f"{op_bytes(rec, 'stack')}, select_backward {sel}); "
+                    f"{idx['bytes']} with each layer indexed "
+                    f"(select_backward {sel_idx}, stack "
+                    f"{op_bytes(idx, 'stack')}); saved "
+                    f"{idx['bytes'] - rec['bytes']} bytes "
+                    f"({(idx['bytes'] - rec['bytes']) / idx['bytes']:.4%}); "
+                    f"flops {rec['flops']} against {idx['flops']} indexed "
+                    f"(add.Tensor, which sums the indexed gradients: "
+                    f"{idx['by_op'].get('aten.add.Tensor', [0, 0])[1]} "
+                    f"against {rec['by_op'].get('aten.add.Tensor', [0, 0])[1]}"
+                    f")")
 
 
 def compression_card_and_cpu(dev, seed: int) -> None:
@@ -3239,11 +3315,13 @@ def compression_card_and_cpu(dev, seed: int) -> None:
 def dryrun_phase(dev, opts, probe: dict) -> None:
     """Phase 21 (the dry-run, ``launch/dryrun.py``): the SMOKE cells of
     ``DRYRUN_SMOKE`` counted card against CPU; the two ``DRYRUN_FULL``
-    cells at full width on the card (probes and extrapolation as the
-    dry-run's CLI runs them), each record's flops, bytes, t_bound,
-    bottleneck, run_s and roofline fraction on the ``card`` mesh; the MWIS
-    sweep-round probe's record from phase 17's ranks; the abstract count
-    held to the card (``abstract_phase``); the compression checks.  Every
+    cells at full size by the dry-run's default route (on meta: no
+    launch, no ``superseded_by``), each record's flops, transcendentals,
+    bytes, t_bound, bottleneck, host_s and roofline fraction on the
+    ``card`` mesh; ``DRYRUN_CARD_ROUTE`` by the card probe route against
+    its meta record; the MWIS sweep-round probe's record from phase 17's
+    ranks; the abstract count held to the card and the stacked weights'
+    gradient bytes (``abstract_phase``); the compression checks.  Every
     kernel of the dry-run's cells must have launched."""
     import torch
 
@@ -3257,34 +3335,63 @@ def dryrun_phase(dev, opts, probe: dict) -> None:
                                        opts.seed).items():
             launched[k] = launched.get(k, 0) + v
     info = dryrun.device_info(dev)
+    metas = {}
     for arch_id, shape in DRYRUN_FULL:
-        torch.cuda.synchronize()
+        # the dry-run's default route: the cell on meta at its full shape
         before = launch_counts()
         cell = dryrun.run_cell(arch_id, shape, dev, seed=opts.seed)
         rec = dryrun.mesh_record(arch_id, shape, "card", cell, cell["total"],
-                                 info)
+                                 dryrun.device_info("meta"))
         got = {k: v - before[k] for k, v in launch_counts().items()
                if v - before[k]}
+        if (rec["counted_on"] != "meta" or "superseded_by" in rec
+                or got):
+            fail(f"dryrun: {arch_id} × {shape}: the default route gave a "
+                 f"record counted on {rec['counted_on']} "
+                 f"(superseded_by {rec.get('superseded_by')}), launches "
+                 f"{got}")
         top = cell["probes"][0]["top_ops"]
-        units = {k: sum(p["kernels"].get(k, {}).get("units", 0)
-                        for p in cell["probes"]) for k in got}
-        if units != got:
-            fail(f"dryrun: {arch_id} × {shape}: counted units {units} != "
-                 f"launches {got}")
-        for k, v in got.items():
-            launched[k] = launched.get(k, 0) + v
-        phase("dryrun", f"{arch_id} × {shape} (card, "
-                        f"{info.get('nvidia_smi', dev.type)}): "
-                        f"{dryrun.summary_line(rec)}; probes "
-                        f"{[(p['tag'], round(p['run_s'], 3))
+        phase("dryrun", f"{arch_id} × {shape} (default route, counted on "
+                        f"meta; card mesh): {dryrun.summary_line(rec)}; "
+                        f"flops by class {rec['flops_by_class']}; probes "
+                        f"{[(p['tag'], round(p['host_s'], 3))
                             for p in cell['probes']]}"
                         f"; kernels {rec['kernels']}; memory {rec['memory']}; "
                         f"model_flops {cell['model_flops']:.6e}; top ops of "
                         f"probe {cell['probes'][0]['tag']} [calls, flops, "
-                        f"bytes]: "
+                        f"bytes, transcendentals]: "
                         f"{dict(list(top.items())[:6])}"
                         f"; note: {rec['note']}")
-        torch.cuda.empty_cache()
+        metas[arch_id, shape] = rec
+    # the card probe route (``--probes``), until a later PR retires it
+    arch_id, shape = DRYRUN_CARD_ROUTE
+    torch.cuda.synchronize()
+    before = launch_counts()
+    cell = dryrun.run_cell(arch_id, shape, dev, seed=opts.seed,
+                           abstract=False)
+    rec = dryrun.mesh_record(arch_id, shape, "card", cell, cell["total"],
+                             info)
+    got = {k: v - before[k] for k, v in launch_counts().items()
+           if v - before[k]}
+    units = {k: sum(p["kernels"].get(k, {}).get("units", 0)
+                    for p in cell["probes"]) for k in got}
+    if (cell["counted_on"] != dev.type or not got or units != got
+            or rec.get("superseded_by") != "abstract"):
+        fail(f"dryrun: {arch_id} × {shape} by the card probe route: counted "
+             f"on {cell['counted_on']}, units {units}, launches {got}")
+    for k, v in got.items():
+        launched[k] = launched.get(k, 0) + v
+    meta = metas[arch_id, shape]
+    phase("dryrun", f"{arch_id} × {shape} (the card probe route, --probes; "
+                    f"{info.get('nvidia_smi', dev.type)}): "
+                    f"{dryrun.summary_line(rec)}; probes "
+                    f"{[(p['tag'], round(p['run_s'], 3))
+                        for p in cell['probes']]}; kernels {rec['kernels']}; "
+                    f"launches {got}"
+                    + "; card route / meta: " + ", ".join(
+                        f"{k} {rec['cost'][k] / meta['cost'][k]:.4f}"
+                        for k in ("flops", "bytes_accessed")))
+    torch.cuda.empty_cache()
     cell = dict(family="mwis", pes=probe["pes"],
                 probes=[dict(tag="sweep", point={}, run_s=probe["run_s"])],
                 model_flops=10.0 * probe["pes"] * probe["shape"]["E"],

@@ -6,10 +6,22 @@ compiled program and parses collective bytes out of its HLO text.  The port
 has no compiler: :class:`WorkCounter` is a ``TorchDispatchMode`` that sees
 every aten op the run dispatches and totals
 
-  * FLOPs: ``torch.utils.flop_counter``'s registered formulas (matmuls,
-    convolutions, attention), and the port's own for the matrix-vector
+  * FLOPs as XLA's cost analysis (the reference's dry-run) counts them,
+    by op class (:data:`FLOP_CLASSES`): ``matmul``,
+    ``torch.utils.flop_counter``'s registered formulas (matmuls,
+    convolutions, attention) and the port's own for the matrix-vector
     and vector products it lacks (``mv``, ``addmv``, ``dot``, ``vdot``:
-    2 · multiply-adds); 0 for an op without one;
+    2 · multiply-adds); ``elementwise``, a FLOP an output element for
+    arithmetic, comparisons, selects and dtype conversions, and the
+    arithmetic XLA:CPU expands ``sigmoid``, ``silu``, ``acos`` and an
+    integer power into; ``reduction``, a reduction's input less output
+    elements (XLA's ``reduce``), a scatter-add's source elements (its
+    combiner), a sort's n · ceil(log2 n); ``kernel``, the hand kernels'
+    operations (below).  Transcendentals (``exp``, ``log``, ``rsqrt``,
+    ``sigmoid``'s ``exp``…) are counted apart, as XLA counts them, and
+    are not FLOPs.  Layout and data movement (views, ``clone``,
+    ``copy_``, ``cat``, ``index``, ``gather``; ``topk``, a custom call
+    XLA costs at 0) count 0 (:data:`EXTRA_FLOPS`);
   * bytes: each op's tensor inputs plus its outputs — the port fuses
     nothing, so that is its memory traffic.  Views count 0.  An op that
     moves a tensor between the host and a device counts its output under
@@ -65,28 +77,240 @@ COLLECTIVE_KINDS = {
 _VIEW_LIKE = frozenset({"_unsafe_view", "lift_fresh", "alias"})
 
 
-def _mv_flops(mat, vec, *args, **kwargs) -> int:
-    return 2 * mat.shape[0] * mat.shape[1]
+#: The classes the counted FLOPs split into (``flops_by_class``).
+FLOP_CLASSES = ("matmul", "elementwise", "reduction", "kernel")
+#: Counted work of one op: {class: FLOPs, "transcendentals": n}.
+Flops = Dict[str, int]
 
 
-def _addmv_flops(self, mat, vec, *args, **kwargs) -> int:
-    return 2 * mat.shape[0] * mat.shape[1]
+def _numel(x) -> int:
+    """Elements of a tensor, or of the first tensor of an op's outputs."""
+    if isinstance(x, (list, tuple)):
+        return _numel(x[0])
+    return x.numel() if isinstance(x, torch.Tensor) else 1
 
 
-def _dot_flops(a, b, *args, **kwargs) -> int:
-    return 2 * a.shape[0]
+def _mv_flops(mat, vec, *args, **kwargs) -> Flops:
+    return {"matmul": 2 * mat.shape[0] * mat.shape[1]}
 
 
+def _addmv_flops(self, mat, vec, *args, **kwargs) -> Flops:
+    return {"matmul": 2 * mat.shape[0] * mat.shape[1]}
+
+
+def _dot_flops(a, b, *args, **kwargs) -> Flops:
+    return {"matmul": 2 * a.shape[0]}
+
+
+def _per_element(flops: int, transcendentals: int = 0) -> Callable:
+    """An elementwise op: ``flops`` FLOPs and ``transcendentals`` an
+    output element (XLA counts each elementwise HLO op once an element)."""
+    def formula(*args, out_val=None, **kwargs) -> Flops:
+        n = _numel(out_val)
+        return {"elementwise": flops * n,
+                "transcendentals": transcendentals * n}
+    return formula
+
+
+def _pow_scalar_flops(x, exponent, *args, out_val=None, **kwargs) -> Flops:
+    """``x ** e`` as XLA counts ``jnp``'s: an integer e by repeated
+    squaring (floor(log2 |e|) + popcount(|e|) - 1 multiplies, and a
+    divide where e < 0), any other e one ``power`` (or ``sqrt`` /
+    ``rsqrt``) transcendental."""
+    n = _numel(out_val)
+    e = float(exponent)
+    if e.is_integer() and e != 0:
+        k = int(abs(e))
+        muls = k.bit_length() - 1 + bin(k).count("1") - 1
+        return {"elementwise": (muls + (e < 0)) * n}
+    return {"transcendentals": 0 if e == 0 else n}
+
+
+def _to_copy_flops(x, *args, out_val=None, **kwargs) -> Flops:
+    """A dtype change is XLA's ``convert``, one FLOP an element; a copy
+    that keeps the dtype is data movement."""
+    return {"elementwise": _numel(out_val) if out_val.dtype != x.dtype
+            else 0}
+
+
+def _reduce(elementwise_out: int = 0) -> Callable:
+    """A reduction of ``x`` (its first argument): input less output
+    elements (XLA's ``reduce``), plus ``elementwise_out`` FLOPs an output
+    element (``mean``'s divide)."""
+    def formula(x, *args, out_val=None, **kwargs) -> Flops:
+        n_out = _numel(out_val)
+        return {"reduction": x.numel() - n_out,
+                "elementwise": elementwise_out * n_out}
+    return formula
+
+
+def _rows(x, dim) -> int:
+    """Rows of a softmax-like op over ``dim``: x's elements over that
+    axis's length."""
+    return x.numel() // max(x.shape[dim], 1) if x.dim() else 1
+
+
+def _softmax_flops(x, dim, *args, **kwargs) -> Flops:
+    """``jax.nn.softmax``: max, subtract, exp, sum, divide."""
+    n, r = x.numel(), _rows(x, dim)
+    return {"elementwise": 2 * n, "reduction": 2 * (n - r),
+            "transcendentals": n}
+
+
+def _log_softmax_flops(x, dim, *args, **kwargs) -> Flops:
+    """``jax.nn.log_softmax``: max, subtract, exp, sum, log, subtract."""
+    n, r = x.numel(), _rows(x, dim)
+    return {"elementwise": 3 * n, "reduction": 2 * (n - r),
+            "transcendentals": n + r}
+
+
+def _softmax_bwd_flops(grad, out, dim, *args, **kwargs) -> Flops:
+    """y · (g - sum(g · y)): two multiplies and a subtract an element, a
+    sum a row."""
+    n, r = grad.numel(), _rows(grad, dim)
+    return {"elementwise": 3 * n, "reduction": n - r}
+
+
+def _log_softmax_bwd_flops(grad, out, dim, *args, **kwargs) -> Flops:
+    """g - exp(y) · sum(g): an exp, a multiply and a subtract an element,
+    a sum a row."""
+    n, r = grad.numel(), _rows(grad, dim)
+    return {"elementwise": 2 * n, "reduction": n - r, "transcendentals": n}
+
+
+def _logsumexp_flops(x, *args, out_val=None, **kwargs) -> Flops:
+    """``jax.nn.logsumexp``: max (its finite check and select), subtract,
+    exp, sum, log, add."""
+    n, r = x.numel(), _numel(out_val)
+    return {"elementwise": n + 4 * r, "reduction": 2 * (n - r),
+            "transcendentals": n + r}
+
+
+def _norm_flops(x, *args, out_val=None, **kwargs) -> Flops:
+    """The 2-norm: a square an element, a sum, a sqrt an output."""
+    n, r = x.numel(), _numel(out_val)
+    return {"elementwise": n, "reduction": n - r, "transcendentals": r}
+
+
+def _scatter_add_flops(x, dim, index, src, *args, **kwargs) -> Flops:
+    """A scatter-add (``index_add``, ``scatter_add``, ``scatter_reduce``):
+    its combiner once a source element (XLA's ``scatter``)."""
+    return {"reduction": src.numel()}
+
+
+def _index_put_flops(x, indices, values, accumulate=False, *args,
+                     **kwargs) -> Flops:
+    """``index_put``: a scatter-add with ``accumulate``, else a scatter
+    that overwrites (no combiner FLOPs)."""
+    return {"reduction": values.numel() if accumulate else 0}
+
+
+def _sort_flops(x, *args, **kwargs) -> Flops:
+    """XLA's cost of a ``sort``: n · ceil(log2 n), n the elements of the
+    whole operand."""
+    n = x.numel()
+    return {"reduction": n * max(n - 1, 0).bit_length()}
+
+
+def _searchsorted_flops(sorted_seq, values, *args, out_val=None,
+                        **kwargs) -> Flops:
+    """A binary search: ceil(log2(n + 1)) compares a query."""
+    n = sorted_seq.shape[-1]
+    return {"elementwise": _numel(out_val) * n.bit_length()}
+
+
+def _cumsum_flops(x, *args, **kwargs) -> Flops:
+    """An add an element."""
+    return {"reduction": x.numel()}
+
+
+def _pow_flops(x, exponent, *args, out_val=None, **kwargs) -> Flops:
+    """A tensor to a number: :func:`_pow_scalar_flops`; a tensor
+    exponent or a number's base: one ``power`` an element."""
+    if isinstance(x, torch.Tensor) and not isinstance(exponent,
+                                                      torch.Tensor):
+        return _pow_scalar_flops(x, exponent, out_val=out_val)
+    return {"transcendentals": _numel(out_val)}
+
+
+_reduce_flops = _reduce()
+
+
+def _max_min_flops(x, *args, out_val=None, **kwargs) -> Flops:
+    """``max`` / ``min``: of two tensors, an elementwise op; of one, a
+    reduction."""
+    if args and isinstance(args[0], torch.Tensor):
+        return {"elementwise": _numel(out_val)}
+    return _reduce_flops(x, out_val=out_val)
+
+
+#: Arithmetic, comparisons, selects, bit ops: one FLOP an output element.
+_ELEMENTWISE = (
+    "add", "sub", "rsub", "mul", "div", "neg", "abs", "sgn", "sign",
+    "maximum", "minimum", "clamp", "clamp_min", "clamp_max", "where",
+    "lt", "le", "gt", "ge", "eq", "ne", "bitwise_and", "bitwise_or",
+    "bitwise_xor", "bitwise_not", "logical_and", "logical_or",
+    "logical_not", "logical_xor", "__lshift__", "__rshift__", "relu",
+    "reciprocal", "masked_fill", "floor", "ceil", "round", "trunc")
+#: One transcendental an output element.
+_TRANSCENDENTAL = ("exp", "log", "log1p", "expm1", "sqrt", "rsqrt", "sin",
+                   "cos", "tan", "tanh", "erf", "atan2")
+_FORMULAS: Dict[str, Callable] = {
+    "mv": _mv_flops, "addmv": _addmv_flops, "dot": _dot_flops,
+    "vdot": _dot_flops,
+    **{n: _per_element(1) for n in _ELEMENTWISE},
+    **{n: _per_element(0, 1) for n in _TRANSCENDENTAL},
+    "sigmoid": _per_element(3, 1),
+    "sigmoid_backward": _per_element(3),       # g · y · (1 - y)
+    "tanh_backward": _per_element(3),          # g · (1 - y²)
+    "silu": _per_element(4, 1),
+    "silu_backward": _per_element(8, 1),       # recomputes the sigmoid
+    "threshold_backward": _per_element(2),     # compare, select
+    "acos": _per_element(3, 2),
+    "floor_divide": _per_element(8),
+    "remainder": _per_element(6),
+    "pow": _pow_flops,
+    "_to_copy": _to_copy_flops,
+    **dict.fromkeys(("sum", "amax", "amin", "any", "all", "argmax",
+                     "argmin"), _reduce_flops),
+    "max": _max_min_flops, "min": _max_min_flops,
+    "mean": _reduce(elementwise_out=1),
+    "linalg_vector_norm": _norm_flops,
+    "logsumexp": _logsumexp_flops,
+    "_softmax": _softmax_flops,
+    "_log_softmax": _log_softmax_flops,
+    "_softmax_backward_data": _softmax_bwd_flops,
+    "_log_softmax_backward_data": _log_softmax_bwd_flops,
+    "cumsum": _cumsum_flops,
+    "index_add": _scatter_add_flops, "scatter_add": _scatter_add_flops,
+    "scatter_reduce": _scatter_add_flops,
+    "index_put": _index_put_flops,
+    "sort": _sort_flops,
+    "searchsorted": _searchsorted_flops,
+}
 _aten = torch.ops.aten
 #: FLOP formulas of ops that ``flop_registry`` lacks (kept here: the
-#: global registry is torch's, not the port's).
-EXTRA_FLOPS = {_aten.mv: _mv_flops, _aten.addmv: _addmv_flops,
-               _aten.dot: _dot_flops, _aten.vdot: _dot_flops}
+#: global registry is torch's, not the port's), by overload packet: each
+#: returns its FLOPs by class and its transcendentals.  An in-place
+#: variant counts as its op.  The composites' counts are what XLA:CPU
+#: counts for the ``jnp`` op the reference writes: ``sigmoid`` as
+#: 1 / (1 + exp(-x)), ``silu`` as x · sigmoid, ``acos`` through ``atan2``
+#: and ``sqrt``, integer ``floor_divide`` / ``remainder`` with their sign
+#: fixes.
+EXTRA_FLOPS: Dict[Any, Callable] = {
+    getattr(_aten, name + inplace): f for name, f in _FORMULAS.items()
+    for inplace in ("", "_") if hasattr(_aten, name + inplace)}
 
 
-def flop_formula(packet) -> Optional[Callable]:
-    """The FLOP formula of an aten op (its overload packet), or None."""
-    return flop_registry.get(packet) or EXTRA_FLOPS.get(packet)
+def op_flops(func, args: tuple, kwargs: dict, out) -> Flops:
+    """An aten op's FLOPs by class and transcendentals ({} for an op
+    that counts none: views, copies, indexing, factories)."""
+    packet = func._overloadpacket
+    if packet in flop_registry:
+        return {"matmul": int(flop_registry[packet](*args, **kwargs,
+                                                    out_val=out))}
+    formula = EXTRA_FLOPS.get(packet)
+    return formula(*args, **kwargs, out_val=out) if formula else {}
 
 
 def _tensors(x) -> list:
@@ -166,12 +390,14 @@ class WorkCounter(TorchDispatchMode):
         super().__init__()
         self.tally = tally
         self.flops = 0
+        self.transcendentals = 0
+        self.flops_by_class: Dict[str, int] = dict.fromkeys(FLOP_CLASSES, 0)
         self.bytes = 0
         self.transfer_bytes = 0
         self.collectives: Dict[str, int] = collections.Counter()
         self.kernels: Dict[str, Dict[str, Any]] = {}
-        #: per aten op: [calls, flops, bytes] (what differs where two runs
-        #: disagree)
+        #: per aten op: [calls, flops, bytes, transcendentals] (what
+        #: differs where two runs disagree)
         self.by_op: Dict[str, list] = {}
         self._hidden = 0
 
@@ -201,6 +427,7 @@ class WorkCounter(TorchDispatchMode):
         rec["bytes"] += work.bytes
         if self._hidden == 1:
             self.flops += work.ops
+            self.flops_by_class["kernel"] += work.ops
             self.bytes += work.bytes
         try:
             yield
@@ -234,20 +461,28 @@ class WorkCounter(TorchDispatchMode):
         if _crosses_devices(name, ins, outs):
             self.transfer_bytes += _nbytes(outs)
             return out
-        formula = flop_formula(func._overloadpacket)
-        flops = int(formula(*args, **kwargs, out_val=out)) if formula else 0
+        work = op_flops(func, args, kwargs, out)
+        flops = 0
+        for cls in FLOP_CLASSES:
+            n = int(work.get(cls, 0))
+            self.flops_by_class[cls] += n
+            flops += n
+        transcendentals = int(work.get("transcendentals", 0))
         n_bytes = _nbytes(ins) + _nbytes(outs)
         self.flops += flops
+        self.transcendentals += transcendentals
         self.bytes += n_bytes
-        rec = self.by_op.setdefault(str(func), [0, 0, 0])
+        rec = self.by_op.setdefault(str(func), [0, 0, 0, 0])
         rec[0] += 1
         rec[1] += flops
         rec[2] += n_bytes
+        rec[3] += transcendentals
         return out
 
     def summary(self) -> Dict[str, Any]:
-        return dict(flops=self.flops, bytes=self.bytes,
-                    transfer_bytes=self.transfer_bytes,
+        return dict(flops=self.flops, transcendentals=self.transcendentals,
+                    flops_by_class=dict(self.flops_by_class),
+                    bytes=self.bytes, transfer_bytes=self.transfer_bytes,
                     collectives=dict(self.collectives),
                     kernels={k: dict(v) for k, v in
                              sorted(self.kernels.items())})

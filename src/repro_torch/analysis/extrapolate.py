@@ -12,11 +12,10 @@ ops whose sizes are affine in each such axis, so
 
 and :func:`multilinear` evaluates it at the full point, one axis after
 the other.  Where a term is not affine in an axis the record's note says
-so: the MoE capacity rounds; gemma3's global layers are every 6th; a
-training step's weight gradients of stacked layers are O(L^2) bytes
-(``launch/dryrun.py``'s caveats), so there the linear form is a lower
-bound.  The abstract count (``launch/dryrun.py --abstract``) has no such
-caveat: it counts every cell at its full shape on meta tensors, and only
+so: the MoE capacity rounds; gemma3's global layers are every 6th; at
+B 1 a reshape is a view (``launch/dryrun.py``'s caveats).  The abstract
+count (the dry-run's default) has no such caveat: it counts every cell
+at its full shape on meta tensors, and only
 prefill at layer probes of its full batch, which :func:`affine` carries
 exactly to the full depth (by layer kind where local and global layers
 interleave).

@@ -96,17 +96,23 @@ def _seconds(r: Dict) -> float:
     return r["run_s"] if "run_s" in r else r["host_s"]
 
 
+def _t_bound(r: Dict) -> float:
+    rf = r["roofline"]
+    return max(rf["t_compute_s"], rf["t_memory_s"], rf["t_collective_s"])
+
+
 def abstract_table(records: List[Dict], base: List[Dict] = ()) -> str:
     """The ``card`` mesh's records: where each cell was counted (``meta``
-    or ``card``), its FLOPs, bytes, t_bound, bottleneck, roofline
-    fraction, temp GB and seconds (host seconds on meta), and where
-    ``base`` records (another run's) count the cell too, the ratio of
-    FLOPs and of bytes to theirs."""
+    or ``card``), its FLOPs, transcendentals, bytes, t_bound, bottleneck,
+    roofline fraction, temp GB and seconds (host seconds on meta), and
+    where ``base`` records (another run's) count the cell too, the ratio
+    of FLOPs, bytes, t_bound and roofline fraction to theirs."""
     old = {(r["arch"], r["shape"]): r for r in base
            if r.get("ok") and r["mesh"] == "card"}
-    rows = ["| arch | shape | counted on | flops | bytes | t_bound(s) | "
-            "bound | roofline_frac | temp(GB) | time(s) | flops / base | "
-            "bytes / base |", "|" + "---|" * 12]
+    rows = ["| arch | shape | counted on | flops | transc | bytes | "
+            "t_bound(s) | bound | roofline_frac | temp(GB) | time(s) | "
+            "flops / base | bytes / base | t_bound / base | frac / base |",
+            "|" + "---|" * 15]
     for r in sorted(records, key=lambda r: (r["arch"], r["shape"])):
         if r["mesh"] != "card":
             continue
@@ -114,16 +120,21 @@ def abstract_table(records: List[Dict], base: List[Dict] = ()) -> str:
             rows.append(f"| {r['arch']} | {r['shape']} | FAILED |")
             continue
         rf, c = r["roofline"], r["cost"]
-        t_bound = max(rf["t_compute_s"], rf["t_memory_s"],
-                      rf["t_collective_s"])
         b = old.get((r["arch"], r["shape"]))
-        ratios = ("new | new" if b is None else
-                  f"{c['flops'] / b['cost']['flops']:.4f} | "
-                  f"{c['bytes_accessed'] / b['cost']['bytes_accessed']:.4f}")
+        if b is None:
+            ratios = "new | new | new | new"
+        else:
+            bf = b["roofline"]["roofline_fraction"]
+            ratios = (
+                f"{c['flops'] / b['cost']['flops']:.4f} | "
+                f"{c['bytes_accessed'] / b['cost']['bytes_accessed']:.4f} | "
+                f"{_t_bound(r) / _t_bound(b):.4f} | "
+                + (f"{rf['roofline_fraction'] / bf:.4f}" if bf else "n/a"))
         where = "meta" if r.get("counted_on") == "meta" else "card"
         rows.append(
             f"| {r['arch']} | {r['shape']} | {where} | {c['flops']:.4e} "
-            f"| {c['bytes_accessed']:.4e} | {t_bound:.4e} "
+            f"| {r.get('transcendentals', 0):.4e} "
+            f"| {c['bytes_accessed']:.4e} | {_t_bound(r):.4e} "
             f"| {rf['bottleneck'][:4]} | {rf['roofline_fraction']:.4f} "
             f"| {_gb(r['memory']['temp_bytes'])} | {_seconds(r):.1f} "
             f"| {ratios} |")
@@ -156,8 +167,9 @@ def main() -> None:
                     choices=("roofline", "dryrun", "notes", "abstract"))
     ap.add_argument("--base", action="append", default=[],
                     help="--kind abstract: another run's records (a later "
-                         "--base wins), to give each cell's FLOPs and "
-                         "bytes as a ratio to theirs")
+                         "--base wins), to give each cell's FLOPs, bytes, "
+                         "t_bound and roofline fraction as a ratio to "
+                         "theirs")
     args = ap.parse_args()
     recs = load(args.dir, args.tag)
     if args.kind == "abstract":

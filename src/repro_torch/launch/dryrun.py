@@ -4,55 +4,60 @@ H100 roofline.
 The port of ``repro/launch/dryrun.py``.  The reference lowers and compiles
 each cell's step for a TPU pod of 256 (``single``) or 512 (``multi``)
 placeholder devices and reads XLA's cost and memory analyses.  The port has
-no compiler and no GSPMD: it RUNS each cell's step once on one card, at
-full width, under ``analysis.count.WorkCounter``, at two probe points of up
-to two reduced axes — the layers (the reference's L = 2, 4 where they fit,
-else 1, 2), the batch (LM train and prefill: 1, 2; decode keeps its batch
-where it fits) and DLRM's table rows (every table capped at 1 M and 2 M
-rows) — and extrapolates multilinearly to the full cell
-(``analysis.extrapolate``).  A probe plan that runs out of the card's
-memory gives way to the next, smaller one; a cell that fits at none gets
-a record with ``ok: false`` and the reason.  MWIS cells count one
-sweep-round of the per-PE path (``solvers.sweep_probe_shard_map_fn``) on
-``--pes`` gloo ranks over an instance at the cell's per-PE shape.
+no compiler and no GSPMD: it RUNS each cell's step once under
+``analysis.count.WorkCounter``.
 
-``--abstract`` counts LM, GNN and DLRM cells on meta tensors instead, as
-the reference lowers its cells: the weights from
-``models.common.abstract_params``, the optimizer state from
+By default (the abstract count; ``--abstract`` names it) LM, GNN and DLRM
+cells run on meta tensors, as the reference lowers its cells: the weights
+from ``models.common.abstract_params``, the optimizer state from
 ``configs.base.opt_abstract``, the inputs from ``configs.base.sds`` (index
 arrays whose data sets work drawn on the host beside them), so a cell
-holds no memory and is counted at its full shape.  Training, decode, GNN
-and DLRM cells are counted in one run at full shape and depth.  Prefill
-cells (a Python tile loop a layer, slow at full depth) are counted at full
-batch, seq and width at the reference's layer probes L 2, 4 and
-extrapolated in L, which is exact for uniform layers without a backward;
-gemma3, whose every 6th layer is global, at L 1, 2, 6, combined by layer
-kind (``analysis.extrapolate.affine``).  MWIS cells are counted on the
-card as without ``--abstract``: a sweep-round's work is its data's.  The
-abstract count is the one to read: an LM, GNN or DLRM record counted by
-probes on a device says ``superseded_by: "abstract"`` and starts its note
-with :data:`SUPERSEDED`.
+holds no memory, needs no card and is counted at its full shape.
+Training, decode, GNN and DLRM cells are counted in one run at full shape
+and depth.  Prefill cells (a Python tile loop a layer, slow at full depth)
+are counted at full batch, seq and width at the reference's layer probes
+L 2, 4 and extrapolated in L, which is exact for uniform layers without a
+backward; gemma3, whose every 6th layer is global, at L 1, 2, 6, combined
+by layer kind (``analysis.extrapolate.affine``).
+
+MWIS cells count one sweep-round of the per-PE path
+(``solvers.sweep_probe_shard_map_fn``) on ``--pes`` gloo ranks over an
+instance at the cell's per-PE shape, on ``--device``: a sweep-round's work
+is its data's.
+
+``--probes`` asks for the card route that came first and is superseded:
+LM, GNN and DLRM cells run on ``--device`` at full width at two probe
+points of up to two reduced axes — the layers (the reference's L = 2, 4
+where they fit, else 1, 2), the batch (LM train and prefill: 1, 2; decode
+keeps its batch where it fits) and DLRM's table rows (every table capped
+at 1 M and 2 M rows) — extrapolated multilinearly to the full cell
+(``analysis.extrapolate``).  A probe plan that runs out of the card's
+memory gives way to the next, smaller one; a cell that fits at none gets
+a record with ``ok: false`` and the reason.  Such a record says
+``superseded_by: "abstract"`` and starts its note with
+:data:`SUPERSEDED`: at B 1, 2 the probes overcount bytes and miss the
+MoE capacity at the full batch.
 
 Per cell and mesh (``single`` 256 chips, ``multi`` 512, ``card`` 1) the
-record holds the counted FLOPs and bytes and the collective bytes split
-evenly over the chips (not a sharded program), the per-device memory,
-the three roofline terms and bottleneck (``analysis.roofline``, H100
-SXM5), the model FLOPs (the reference's formulas), ``run_s`` (the counted
-runs' device time; ``host_s``, their host time, on meta), ``counted_on``
-(``meta``, ``cpu``, or the card's name and power limit) and the card's
-name and power limit.  One counted run of an (arch, shape) serves all
-three meshes.
+record holds the counted FLOPs and bytes (``cost``), the transcendentals
+beside them (``transcendentals``), the FLOPs by op class
+(``flops_by_class``) and the collective bytes, split evenly over the
+chips (not a sharded program), the per-device memory, the three roofline terms and bottleneck (``analysis.roofline``,
+H100 SXM5), the model FLOPs (the reference's formulas), ``run_s`` (the
+counted runs' device time; ``host_s``, their host time, on meta),
+``counted_on`` (``meta``, ``cpu``, or the card's name and power limit)
+and the card's name and power limit.  One counted run of an (arch,
+shape) serves all three meshes.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k \\
       --mesh card
   python -m repro_torch.launch.dryrun --all            # a subprocess a cell
-  python -m repro_torch.launch.dryrun --all --abstract
-  python -m repro_torch.launch.dryrun --arch grok-1-314b --shape train_4k \\
-      --abstract                                 # meta: no card needed
+  python -m repro_torch.launch.dryrun --arch grok-1-314b --shape train_4k
+                                                 # meta: no card needed
   python -m repro_torch.launch.dryrun --list
   python -m repro_torch.launch.dryrun --arch gemma3-1b --shape decode_32k \\
-      --device cpu --override d_model=64 ...     # CPU, shrunk by overrides
+      --probes --device cpu --override d_model=64 ...  # the probe route
 
 The reference's ``XLA_FLAGS`` preamble (512 host devices) has no
 counterpart.
@@ -170,7 +175,8 @@ def _terms(rec: Dict[str, Any], kernels: Dict[str, str],
     kind of the cell present, 0 where this probe has none)."""
     ks = rec.get("kernels", {})
     return dict(
-        flops=rec["flops"], bytes=rec["bytes"],
+        flops=rec["flops"], transcendentals=rec["transcendentals"],
+        flops_by_class=dict(rec["flops_by_class"]), bytes=rec["bytes"],
         transfer_bytes=rec["transfer_bytes"],
         collectives={k: rec["collectives"].get(k, 0) for k in kinds},
         kernels={k: dict(units=ks.get(k, {}).get("units", 0),
@@ -197,7 +203,7 @@ def _run_probe(arch, shape: str, tag: str, ov: Dict[str, Any],
     rec["top_ops"] = dict(sorted(by_op.items(), key=lambda kv: -kv[1][2])[
         :TOP_OPS])
     rec["ops_without_flops"] = sorted(op for op, v in by_op.items()
-                                      if not v[1])
+                                      if not (v[1] or v[3]))
     return dict(tag=tag, point=point, overrides=ov, **rec)
 
 
@@ -213,8 +219,9 @@ def _free(device) -> None:
 _MOE = ("qwen3-moe-235b-a22b", "grok-1-314b")
 
 #: The note of an LM, GNN or DLRM cell counted on a device by probes.
-SUPERSEDED = ("superseded by --abstract, the full-shape count on meta: "
-              "these probes extrapolate, with the caveats below")
+SUPERSEDED = ("superseded by the abstract count (the default), the "
+              "full-shape count on meta: these probes extrapolate, with "
+              "the caveats below")
 
 
 def _layer_kinds(cfg, n_layers: int) -> Dict[str, int]:
@@ -254,18 +261,11 @@ def _caveats(arch, shape: str, point: Dict[str, int]) -> List[str]:
     if "batch" in point:
         out.append("at B 1 a reshape is a view where at B >= 2 it is a "
                    "copy (aten.clone), so the bytes extrapolated from "
-                   "probes at B 1, 2 overshoot (--abstract counts the "
-                   "full batch)")
+                   "probes at B 1, 2 overshoot (the abstract count takes "
+                   "the full batch)")
     if arch.arch_id in _MOE and "batch" in point:
         out.append("MoE capacity = round(tokens*k/E*1.25) is not affine in "
                    "the batch: the dispatch buffers' terms are approximate")
-    layers = {"n_layers", "n_blocks"} & set(point)
-    if layers and (arch.family == "gnn"
-                   or base.LM_SHAPES[shape]["kind"] == "train"):
-        out.append("each layer's weight gradient is a select_backward of "
-                   "the stacked [L, ...] parameter, materialised whole and "
-                   "summed (bytes O(L^2)): the bytes extrapolated linearly "
-                   "in L are a lower bound")
     if arch.arch_id == "gemma3-1b" and "n_layers" in point:
         out.append("the probes' layers are all local (every 6th of 26 is "
                    "global): the full depth is counted as local layers")
@@ -307,12 +307,13 @@ def _abstract_cell(arch, shape: str, full_build, cli: Dict[str, Any],
 
 def run_cell(arch_id: str, shape: str, device="cuda",
              overrides: Optional[Dict[str, Any]] = None, seed: int = 0,
-             abstract: bool = False) -> Dict[str, Any]:
-    """Count ``arch_id × shape`` at its probe points on ``device`` and
-    extrapolate: {probes (their counts), total (the full cell's counted
-    terms), model_flops, note, full_point, family, counted_on}.  With
-    ``abstract`` an LM, GNN or DLRM cell is counted on meta at its full
-    shape instead (``device`` is not used); an MWIS cell as without."""
+             abstract: bool = True) -> Dict[str, Any]:
+    """Count ``arch_id × shape``: {probes (their counts), total (the full
+    cell's counted terms), model_flops, note, full_point, family,
+    counted_on}.  An LM, GNN or DLRM cell is counted on meta at its full
+    shape (``device`` is not used); with ``abstract=False`` (the
+    superseded probe route) at its probe points on ``device``,
+    extrapolated.  An MWIS cell is counted on ``device`` either way."""
     from repro_torch import resolve_device
     from repro_torch.analysis import extrapolate as ex
     from repro_torch.configs import registry
@@ -418,8 +419,8 @@ def mesh_record(arch_id: str, shape: str, mesh_kind: str,
     chips = MESH_CHIPS[mesh_kind]
     scale = _mesh_scale(cell, mesh_kind)
     dev_terms = _per_device({k: terms[k] for k in (
-        "flops", "bytes", "transfer_bytes", "collectives", "memory")},
-        scale, chips)
+        "flops", "transcendentals", "flops_by_class", "bytes",
+        "transfer_bytes", "collectives", "memory")}, scale, chips)
     cost = dict(flops=dev_terms["flops"],
                 bytes_accessed=dev_terms["bytes"])
     roof = rl.from_cell({"flops": cost["flops"],
@@ -442,6 +443,8 @@ def mesh_record(arch_id: str, shape: str, mesh_kind: str,
         clock: sum(p[clock] for p in cell["probes"]),
         **dict(
             memory=dev_terms["memory"], cost=cost,
+            transcendentals=dev_terms["transcendentals"],
+            flops_by_class=dev_terms["flops_by_class"],
             collectives=dev_terms["collectives"],
             transfer_bytes=dev_terms["transfer_bytes"],
             roofline=roof.report(),
@@ -465,12 +468,13 @@ def _clock(rec: Dict[str, Any]) -> str:
 
 
 def summary_line(rec: Dict[str, Any]) -> str:
-    """flops, bytes, t_bound, bottleneck, run_s (host_s on meta) and
-    roofline_fraction of a record, per device."""
+    """flops, transcendentals, bytes, t_bound, bottleneck, run_s (host_s
+    on meta) and roofline_fraction of a record, per device."""
     rf = rec["roofline"]
     t_bound = max(rf["t_compute_s"], rf["t_memory_s"], rf["t_collective_s"])
     clock = _clock(rec)
     return (f"flops/dev={rec['cost']['flops']:.6e} "
+            f"transcendentals/dev={rec['transcendentals']:.6e} "
             f"bytes/dev={rec['cost']['bytes_accessed']:.6e} "
             f"t_bound={t_bound:.6e} s bottleneck={rf['bottleneck']} "
             f"{clock}={rec[clock]:.3f} "
@@ -534,16 +538,16 @@ def _run_one(args, passthrough: List[str], arch_id: str, shape: str
 
 
 def _run_all(args, passthrough: List[str]) -> None:
-    """Every cell, a subprocess each.  With ``--abstract`` the meta cells
-    (host work, one core each, no device) run several at a time, two
-    cores left to the host, then the MWIS cells one at a time on the
-    device."""
+    """Every cell, a subprocess each.  The meta cells (host work, one core
+    each, no device; all but MWIS unless ``--probes``) run several at a
+    time, two cores left to the host, then the other cells one at a time
+    on the device."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import registry
 
     pairs = list(dict.fromkeys((a, s) for a, s, _ in all_cells()))
-    pooled = [c for c in pairs if args.abstract
+    pooled = [c for c in pairs if not args.probes
               and registry.get(c[0]).family != "mwis"]
     with ThreadPoolExecutor(max(1, (os.cpu_count() or 3) - 2)) as pool:
         ok = list(pool.map(lambda c: _run_one(args, passthrough, *c),
@@ -573,10 +577,16 @@ def main() -> None:
     ap.add_argument("--override", action="append", default=[],
                     help="config override key=value (JSON values)")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu")
-    ap.add_argument("--abstract", action="store_true",
-                    help="count LM, GNN and DLRM cells on meta tensors at "
-                         "their full shape (MWIS cells as without)")
+                    help="cuda (default) or cpu: MWIS cells, and the "
+                         "others under --probes")
+    route = ap.add_mutually_exclusive_group()
+    route.add_argument("--abstract", action="store_true",
+                       help="the default: LM, GNN and DLRM cells counted "
+                            "on meta tensors at their full shape")
+    route.add_argument("--probes", action="store_true",
+                       help="count LM, GNN and DLRM cells by probes on "
+                            "--device, extrapolated (superseded by the "
+                            "abstract count)")
     ap.add_argument("--pes", type=int, default=4,
                     help="MWIS cells: gloo ranks, one a PE")
     ap.add_argument("--seed", type=int, default=0)
@@ -591,7 +601,7 @@ def main() -> None:
         passthrough = ["--device", args.device, "--pes", str(args.pes),
                        "--seed", str(args.seed)]
         passthrough += ["--tag", args.tag] if args.tag else []
-        passthrough += ["--abstract"] if args.abstract else []
+        passthrough += ["--probes"] if args.probes else []
         passthrough += [x for kv in args.override for x in ("--override", kv)]
         _run_all(args, passthrough)
         return
@@ -611,7 +621,7 @@ def main() -> None:
         cli_ov.setdefault("pes", args.pes)
     try:
         cell = run_cell(args.arch, args.shape, args.device, cli_ov,
-                        seed=args.seed, abstract=args.abstract)
+                        seed=args.seed, abstract=not args.probes)
     except Exception:
         traceback.print_exc()
         for m in MESH_CHIPS:

@@ -139,6 +139,20 @@ def nest(flat: Dict[str, Any]) -> ParamTree:
     return tree
 
 
+def layer_slices(stacked: Dict[str, torch.Tensor]
+                 ) -> list[Dict[str, torch.Tensor]]:
+    """Per-layer views of stacked ``[L, ...]`` weights ({name: tensor}):
+    element i is layer i's {name: slice}, the reference's ``lax.scan``
+    over the stack.  Each tensor is cut once with ``torch.unbind``, whose
+    backward stacks the L slices' gradients once (O(L) bytes); indexing
+    ``p[i]`` a layer would make each layer's backward a
+    ``select_backward`` that writes a whole ``[L, ...]`` gradient, L of
+    them summed (O(L^2) bytes).  The values are the same either way."""
+    names = list(stacked)
+    per_name = [torch.unbind(stacked[n], 0) for n in names]
+    return [dict(zip(names, layer)) for layer in zip(*per_name)]
+
+
 # --------------------------------------------------------------------- #
 # numerics
 # --------------------------------------------------------------------- #
@@ -445,7 +459,7 @@ def _chunk_loss(hx: torch.Tensor, lx: torch.Tensor,
     lab = lx.long()
     ok = (lab >= -V) & (lab < V)
     idx = torch.where(lab < 0, lab + V, lab).clamp_(0, V - 1)
-    gold = torch.gather(logits, -1, idx[..., None])[..., 0]
+    gold = torch.gather(logits, -1, idx[..., None]).squeeze(-1)
     gold = torch.where(ok, gold, float("nan"))
     return (lse - gold).sum()
 

@@ -148,7 +148,7 @@ def forward(params: DLRM, batch: Dict[str, torch.Tensor],
     inter = z[:, iu[0], iu[1]]                            # [B, F(F-1)/2]
     top_in = torch.cat([d, inter], dim=-1)
     logit = _mlp(params, "top", top_in, len(cfg.top_mlp))
-    return logit[:, 0]
+    return logit.squeeze(1)
 
 
 def loss_fn(params: DLRM, batch: Dict[str, torch.Tensor],

@@ -167,7 +167,8 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def node_xent_loss(logits: torch.Tensor, labels: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels[:, None].long(), dim=-1)[:, 0]
+    gold = torch.take_along_dim(logits, labels[:, None].long(),
+                                dim=-1).squeeze(1)
     per = (lse - gold) * mask
     return per.sum() / torch.clamp(mask.sum(), min=1.0)
 

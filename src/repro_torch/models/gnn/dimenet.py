@@ -7,7 +7,8 @@ Messages live on *edges*; each interaction block aggregates over wedges
 capped at a static budget (``graphs.sampler.build_triplets``).
 
 The port of ``repro/models/gnn/dimenet.py``; the ``lax.scan`` over the
-stacked blocks is a loop that indexes block ``b``.  Three plans a forward:
+stacked blocks is a loop over their slices (``common.layer_slices``).
+Three plans a forward:
 ``col`` (edges into nodes), ``to`` (triplets into their out-edge: only the
 triplets ``tmask`` keeps, since the reference clamps every padding triplet
 onto edge ``E - 1``) and ``batch_id`` (nodes into graphs).
@@ -131,8 +132,7 @@ def forward(params: DimeNet, batch: Dict[str, Any],
            ).reshape(-1, cfg.n_spherical * cfg.n_radial) * tmask[:, None]
 
     node_out = h.new_zeros((n, cfg.d_hidden))
-    for b in range(cfg.n_blocks):
-        bp = {k: getattr(params.blocks, k)[b] for k in BLOCK}
+    for bp in C.layer_slices({k: getattr(params.blocks, k) for k in BLOCK}):
         # bilinear triplet interaction (DimeNet++ down/up projection)
         m_in = m[ti] @ bp["w_down"]                          # [T, nbil]
         tmsg = m_in * (sbf @ bp["w_sbf"])                    # [T, nbil]
@@ -145,7 +145,7 @@ def forward(params: DimeNet, batch: Dict[str, Any],
         node_out = node_out + F.silu(contrib @ bp["w_out1"]) @ bp["w_out2"]
     per_node = F.silu(node_out @ params.head_w1) @ params.head_w2
     energies = G.scatter_sum(per_node, pl["batch_id"])
-    return energies[:, 0]
+    return energies.squeeze(1)
 
 
 def loss_fn(params: DimeNet, batch: Dict[str, Any],

@@ -16,7 +16,8 @@ max; then the unnormalised aggregate and the denominators) under
 ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``ed scans.
 The max is ``scatter_reduce(amax)`` from -1e30; the sums go through
 ``segment_sum``'s kernel on one plan a chunk (live edges only).  The
-``lax.scan`` over the stacked layers is a loop; ``probe_unroll`` (a scan
+``lax.scan`` over the stacked layers is a loop over their slices
+(``common.layer_slices``); ``probe_unroll`` (a scan
 unroll for the TPU dry-run) is not carried.
 """
 
@@ -169,8 +170,7 @@ def forward(params: EquiformerV2, batch: Dict[str, Any],
         sh = G.spherical_harmonics_dirs(dirs, cfg.l_max)[:, keep_idx]
         return emask, rbf, sh
 
-    for li in range(cfg.n_layers):
-        lp = {k: getattr(params.layers, k)[li] for k in LAYER}
+    for lp in C.layer_slices({k: getattr(params.layers, k) for k in LAYER}):
         xp = torch.cat([x, x.new_zeros((1, n_lm, d))])
         w_src = lp["w_src"][l_of]
         if cfg.transform_then_gather:
@@ -236,7 +236,7 @@ def forward(params: EquiformerV2, batch: Dict[str, Any],
         x = x + upd * gate[:, l_of, :]
     per_node = F.silu(x[:, 0, :] @ params.head_w1) @ params.head_w2
     energies = G.scatter_sum(per_node, pl["batch_id"])
-    return energies[:, 0]
+    return energies.squeeze(1)
 
 
 def loss_fn(params: EquiformerV2, batch: Dict[str, Any],

@@ -5,8 +5,9 @@
     h'_v  = h_v + ReLU(LN( U h_v + Σ_u σ(e'_uv) ⊙ (V h_u) / (Σ σ + ε) ))
 
 The port of ``repro/models/gnn/gatedgcn.py``: the reference's
-``lax.scan`` over the stacked ``[L, d, d]`` layers is a loop that indexes
-layer ``l``; one plan of ``col`` serves every layer's two sums.
+``lax.scan`` over the stacked ``[L, d, d]`` layers is a loop over their
+slices (``common.layer_slices``); one plan of ``col`` serves every layer's
+two sums.
 """
 
 from __future__ import annotations
@@ -83,8 +84,9 @@ def forward(params: GatedGCN, batch: Dict[str, Any],
     plan = plans(batch, cfg)["col"]
     h = batch["node_feat"].to(cfg.dtype) @ params.embed_w + params.embed_b
     e = params.edge_embed.expand(row.shape[0], cfg.d_hidden)
-    for l in range(cfg.n_layers):
-        lp = {k: getattr(params.layers, k)[l] for k in MATS + NORMS}
+    layers = C.layer_slices({k: getattr(params.layers, k)
+                             for k in MATS + NORMS})
+    for lp in layers:
         hp = torch.cat([h, h.new_zeros((1, h.shape[1]))])
         hu, hv = hp[row], hp[col]
         e_new = hu @ lp["E1"] + hv @ lp["E2"] + e @ lp["E3"]

@@ -149,9 +149,10 @@ def _layer_window(cfg: TransformerConfig, layer_idx: int) -> Optional[int]:
     return 2**30 if is_global else cfg.local_window
 
 
-def _layer(group: nn.Module, i: int) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s slice of a stacked weight group (``attn`` / ``ffn``)."""
-    return {name: p[i] for name, p in group.named_parameters()}
+def _layers(group: nn.Module) -> list[Dict[str, torch.Tensor]]:
+    """Every layer's slices of a stacked weight group (``attn`` / ``ffn``),
+    cut once a forward (``common.layer_slices``)."""
+    return C.layer_slices(dict(group.named_parameters()))
 
 
 def _attention(x, lp, cfg: TransformerConfig, layer_idx: int, positions,
@@ -279,22 +280,23 @@ def forward(
         kcs, vcs = kv_caches
         cache_len = int(cache_len)
 
-    def block(x, i):
-        x, _ = _attention(x, _layer(params.attn, i), cfg, i, positions,
+    def block(x, i, attn_lp, ffn_lp):
+        x, _ = _attention(x, attn_lp, cfg, i, positions,
                           kv_cache=(kcs[i], vcs[i]) if decode else None,
                           cache_len=cache_len)
-        lp = _layer(params.ffn, i)
         if cfg.is_moe:
-            return _moe_ffn(x, lp, cfg)
-        return _dense_ffn(x, lp), torch.zeros((), device=x.device)
+            return _moe_ffn(x, ffn_lp, cfg)
+        return _dense_ffn(x, ffn_lp), torch.zeros((), device=x.device)
 
     remat = cfg.remat and not decode and torch.is_grad_enabled()
+    attn, ffn = _layers(params.attn), _layers(params.ffn)
     auxes = []
     for i in range(cfg.n_layers):
         if remat:
-            x, aux = checkpoint(block, x, i, use_reentrant=False)
+            x, aux = checkpoint(block, x, i, attn[i], ffn[i],
+                                use_reentrant=False)
         else:
-            x, aux = block(x, i)
+            x, aux = block(x, i, attn[i], ffn[i])
         auxes.append(aux)
     x = C.rms_norm(x, params.final_norm)
     return x, torch.stack(auxes).sum(), (kcs, vcs) if decode else None

@@ -178,8 +178,9 @@ def _plan_bytes(plans):
 @pytest.mark.parametrize("arch_id,shape,cut", FAMILY_CASES)
 def test_meta_count_equals_cpu_count(arch_id, shape, cut):
     """A step counted on meta equals its count on the CPU from the same
-    host-drawn index arrays, field by field: FLOPs, bytes,
-    collectives and every kernel's units, operations and bytes.  Transfer
+    host-drawn index arrays, field by field: FLOPs (and by class),
+    transcendentals, bytes, collectives and every kernel's units,
+    operations and bytes.  Transfer
     bytes: the CPU moves nothing; meta, like the card, uploads the GNN
     plans packed on the host, and nothing else."""
     arch = treg.get(arch_id)
@@ -187,7 +188,8 @@ def test_meta_count_equals_cpu_count(arch_id, shape, cut):
     cpu_inputs = built.make_inputs("cpu", 0)
     _, cpu = count.measure(built.fn, cpu_inputs, "cpu")
     _, meta = count.measure(built.fn, built.make_inputs("meta", 0), "meta")
-    for k in ("flops", "bytes", "collectives", "kernels"):
+    for k in ("flops", "transcendentals", "flops_by_class", "bytes",
+              "collectives", "kernels"):
         assert meta[k] == cpu[k], (k, {
             op: (meta["by_op"].get(op), cpu["by_op"].get(op))
             for op in set(meta["by_op"]) | set(cpu["by_op"])
@@ -392,7 +394,8 @@ def test_abstract_prefill_equals_a_full_depth_count(arch_id, cut):
     assert cell["counted_on"] == "meta"
     built = treg.get(arch_id).build("prefill_32k", dict(ov, n_layers=full))
     _, rec = count.measure(built.fn, built.make_inputs("cpu", 0), "cpu")
-    for k in ("flops", "bytes", "transfer_bytes", "collectives", "kernels"):
+    for k in ("flops", "transcendentals", "flops_by_class", "bytes",
+              "transfer_bytes", "collectives", "kernels"):
         assert cell["total"][k] == rec[k], k
     tags = [p["tag"] for p in cell["probes"]]
     # gemma3's SMOKE interleave is 2:1 (global_every 3)
@@ -436,7 +439,8 @@ def test_card_route_records_say_they_are_superseded():
     is not."""
     ov = {**_smoke_overrides("gemma3-1b"), "n_layers": 2, "seq": 64,
           "batch": 2}
-    cell = dryrun.run_cell("gemma3-1b", "decode_32k", "cpu", ov)
+    cell = dryrun.run_cell("gemma3-1b", "decode_32k", "cpu", ov,
+                           abstract=False)
     assert cell["counted_on"] == "cpu"
     assert cell["superseded_by"] == "abstract"
     assert cell["note"].startswith(dryrun.SUPERSEDED)
@@ -482,3 +486,31 @@ def test_cli_abstract_writes_the_reference_keys_and_counted_on(tmp_path):
                        .read_text())
     assert probe["ops_without_flops"] and probe["top_ops"]
     assert "host_s" in probe
+
+
+def test_cli_default_counts_an_lm_cell_on_meta(tmp_path):
+    """With no route flag (and no ``--device``, no card) the dry-run counts
+    an LM cell on meta: gemma3-1b × decode_32k at SMOKE widths gives
+    records ``counted_on`` meta, not superseded, with the transcendentals
+    beside the FLOPs; ``--abstract`` is the same route, and it excludes
+    ``--probes``."""
+    ov = [x for kv in ("d_model=64", "n_heads=4", "d_head=16", "d_ff=128",
+                       "vocab=128", "local_window=8", "attn_chunk=16",
+                       "seq=64", "batch=2", "n_layers=2")
+          for x in ("--override", kv)]
+    recs = {}
+    for route in ((), ("--abstract",)):
+        out = tmp_path / (route[0][2:] if route else "default")
+        res = _cli("--arch", "gemma3-1b", "--shape", "decode_32k", *route,
+                   "--mesh", "card", "--out", str(out), *ov)
+        assert res.returncode == 0, res.stderr[-3000:]
+        recs[route] = rec = json.loads(
+            (out / "gemma3-1b__decode_32k__card.json").read_text())
+        assert rec["ok"] and rec["counted_on"] == "meta"
+        assert "superseded_by" not in rec and "host_s" in rec
+        assert rec["transcendentals"] > 0
+        assert [p["tag"] for p in rec["probes"]] == ["full"]
+    assert recs[()]["cost"] == recs[("--abstract",)]["cost"]
+    both = _cli("--arch", "gemma3-1b", "--shape", "decode_32k",
+                "--abstract", "--probes", "--out", str(tmp_path / "x"))
+    assert both.returncode == 2 and "not allowed with" in both.stderr

@@ -967,7 +967,7 @@ def test_moe_kept_set_on_cuda_matches_cpu(cuda, fp32_matmul):
                     .manual_seed(4))
     res = {}
     for dev in ("cpu", cuda):
-        lp = TM._layer(TM.Transformer(cfg, params).to(dev).ffn, 0)
+        lp = TM._layers(TM.Transformer(cfg, params).to(dev).ffn)[0]
         with torch.no_grad():
             h = MC.rms_norm(x.to(dev), lp["norm"]).reshape(-1, cfg.d_model)
             idx = torch.topk(torch.softmax(h @ lp["router"], -1),
@@ -1220,7 +1220,8 @@ def _to(tree, dev):
 def test_work_count_on_cuda_matches_cpu(cuda, arch_id, module, shape, cut):
     """The dry-run's work counter on a SMOKE cell's step: the same inputs
     (made on the CPU) counted on the card and on the CPU give the same
-    FLOPs, bytes, collectives and kernel units / operations / bytes (the
+    FLOPs (and by class), transcendentals, bytes, collectives and kernel
+    units / operations / bytes (the
     card launches the kernels, the CPU runs their plain versions), and on
     the card each kernel's units are its launches."""
     import importlib
@@ -1238,7 +1239,8 @@ def test_work_count_on_cuda_matches_cpu(cuda, arch_id, module, shape, cut):
     launched = {k: n for k in kernels.KERNELS
                 if (n := kernels.launch_count(k) - before[k])}
     _, cpu = count.measure(built.fn, inputs, "cpu")
-    for k in ("flops", "bytes", "collectives", "kernels"):
+    for k in ("flops", "transcendentals", "flops_by_class", "bytes",
+              "collectives", "kernels"):
         assert card[k] == cpu[k], (k, {
             op: (card["by_op"].get(op), cpu["by_op"].get(op))
             for op in set(card["by_op"]) | set(cpu["by_op"])
@@ -1261,7 +1263,8 @@ def test_work_count_on_cuda_matches_cpu(cuda, arch_id, module, shape, cut):
 def test_meta_count_matches_cuda(cuda, arch_id, module, shape, cut):
     """The dry-run's abstract count: a SMOKE cell's step counted on meta
     and on the card, from the same index arrays drawn on the host, gives
-    the same FLOPs, bytes, transfer bytes (the GNN
+    the same FLOPs (and by class), transcendentals, bytes, transfer bytes
+    (the GNN
     plans' uploads), collectives and kernel units / operations / bytes;
     on the card each kernel's units are its launches, and the card
     reports its storage tally beside its allocator's peak."""
@@ -1280,7 +1283,8 @@ def test_meta_count_matches_cuda(cuda, arch_id, module, shape, cut):
     _, card = count.measure(built.fn, inputs, cuda, tally=True)
     launched = {k: n for k in kernels.KERNELS
                 if (n := kernels.launch_count(k) - before[k])}
-    for k in ("flops", "bytes", "transfer_bytes", "collectives", "kernels"):
+    for k in ("flops", "transcendentals", "flops_by_class", "bytes",
+              "transfer_bytes", "collectives", "kernels"):
         assert card[k] == meta[k], (k, card[k], meta[k])
     assert {k: v["units"] for k, v in card["kernels"].items()} == launched
     assert meta["memory"]["temp_bytes"] > 0
@@ -1290,9 +1294,9 @@ def test_meta_count_matches_cuda(cuda, arch_id, module, shape, cut):
 
 
 def test_dryrun_cell_on_cuda(cuda, tmp_path):
-    """A dry-run cell through the CLI on the card at SMOKE widths: probes
-    L 2, 4, a record for every mesh, the card's name and power limit in
-    it, temp bytes measured."""
+    """A dry-run cell through the CLI's probe route (``--probes``) on the
+    card at SMOKE widths: probes L 2, 4, a record for every mesh, the
+    card's name and power limit in it, temp bytes measured."""
     import json
     import os
     import subprocess
@@ -1305,8 +1309,9 @@ def test_dryrun_cell_on_cuda(cuda, tmp_path):
           for x in ("--override", kv)]
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "gemma3-1b", "--shape", "train_4k", "--mesh", "card", "--out",
-         str(tmp_path), *ov], env=dict(os.environ, PYTHONPATH=str(src)),
+         "gemma3-1b", "--shape", "train_4k", "--probes", "--mesh", "card",
+         "--out", str(tmp_path), *ov],
+        env=dict(os.environ, PYTHONPATH=str(src)),
         capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     rec = json.loads((tmp_path / "gemma3-1b__train_4k__card.json")

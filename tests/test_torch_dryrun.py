@@ -119,13 +119,17 @@ def test_model_flops_match_reference(host_mesh, arch_id, shape):
 # the work counter
 # --------------------------------------------------------------------- #
 def test_counter_matmul_add_and_view():
+    """A matmul's 2 · multiply-adds (matmul class), an add's FLOP an
+    element (elementwise class, as XLA counts it), views nothing."""
     a, b, c = torch.randn(3, 4), torch.randn(4, 5), torch.randn(3, 5)
     with count.WorkCounter() as wc:
         d = a @ b
     assert (wc.flops, wc.bytes) == (2 * 3 * 4 * 5, 4 * (12 + 20 + 15))
+    assert wc.flops_by_class["matmul"] == wc.flops
     with count.WorkCounter() as wc:
         e = d + c
-    assert (wc.flops, wc.bytes) == (0, 3 * 4 * 15)
+    assert (wc.flops, wc.bytes) == (15, 3 * 4 * 15)
+    assert wc.flops_by_class["elementwise"] == 15
     with count.WorkCounter() as wc:
         e.view(15)
         e.t()
@@ -246,20 +250,14 @@ def _smoke_count(kind_shape, n_layers, batch):
     return terms
 
 
-#: Ops whose bytes are not affine in the layer count of a training step:
-#: each layer's weight gradient is a select_backward of the stacked
-#: [L, ...] parameter, materialised whole ([L, ...] zeros but one slice)
-#: and summed into the parameter's gradient, so both grow as L^2.
-QUADRATIC_IN_L = {"aten.select_backward.default", "aten.add.Tensor"}
-
-
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
 def test_extrapolation_is_exact_for_uniform_layers(shape):
     """qwen3-32b at its SMOKE widths (uniform layers), seq 32: the counts at
     probes L 2, 4 × B 2, 4 extrapolate multilinearly to exactly the count
-    of a run at L 6, B 3 — every term of decode; in training every term
-    but the bytes of ``QUADRATIC_IN_L``, which the linear form misses
-    (their extrapolation falls short), every other op's bytes exact."""
+    of a run at L 6, B 3, every term and every op's bytes, in decode and
+    in training: each stacked weight is cut into its layers once a
+    forward (``common.layer_slices``), so its gradient's bytes are linear
+    in L (an indexed slice a layer made them grow as L^2)."""
     samples = [({"n_layers": L, "batch": B}, _smoke_count(shape, L, B))
                for L in (2, 4) for B in (2, 4)]
     ops = {op for _, t in samples for op in t["by_op"]}
@@ -268,18 +266,8 @@ def test_extrapolation_is_exact_for_uniform_layers(shape):
     got = tex.multilinear(samples, {"n_layers": 6, "batch": 3})
     want = _smoke_count(shape, 6, 3)
     assert set(want["by_op"]) == ops
-    if shape == "decode_32k":
-        assert got == want
-        return
-    quad = QUADRATIC_IN_L & ops
-    assert quad == QUADRATIC_IN_L
-    for op in ops - quad:
-        assert got["by_op"][op] == want["by_op"][op], op
-    for op in quad:
-        assert got["by_op"][op] < want["by_op"][op], op
-    for k in ("flops", "memory", "transfer_bytes", "collectives", "kernels"):
-        assert got[k] == want[k], k
-    assert got["bytes"] < want["bytes"]
+    assert "aten.select_backward.default" not in ops
+    assert got == want
 
 
 def test_multilinear_reference_form():
@@ -470,16 +458,18 @@ def test_cli_lists_the_reference_cells():
 
 
 def test_cli_cell_on_the_cpu_writes_the_reference_keys(tmp_path):
-    """gemma3-1b × decode_32k on the CPU at widths cut by ``--override``
-    (seq 64): probes L 2, 4 at the full batch, a record for every mesh
-    with the reference's record and roofline keys, the card's terms the
-    single mesh's × 256; without ``--device`` it refuses to run."""
+    """gemma3-1b × decode_32k by ``--probes`` on the CPU at widths cut by
+    ``--override`` (seq 64): probes L 2, 4 at the full batch, a record for
+    every mesh with the reference's record and roofline keys, the card's
+    terms the single mesh's × 256; without ``--device`` it refuses to
+    run."""
     ov = [x for kv in ("d_model=64", "n_heads=4", "d_head=16", "d_ff=128",
                        "vocab=128", "local_window=8", "attn_chunk=16",
                        "seq=64", "batch=4")
           for x in ("--override", kv)]
-    res = _cli("--arch", "gemma3-1b", "--shape", "decode_32k", "--device",
-               "cpu", "--mesh", "card", "--out", str(tmp_path), *ov)
+    res = _cli("--arch", "gemma3-1b", "--shape", "decode_32k", "--probes",
+               "--device", "cpu", "--mesh", "card", "--out", str(tmp_path),
+               *ov)
     assert res.returncode == 0, res.stderr[-3000:]
     recs = {m: json.loads((tmp_path / f"gemma3-1b__decode_32k__{m}.json")
                           .read_text()) for m in dryrun.MESH_CHIPS}
@@ -498,8 +488,8 @@ def test_cli_cell_on_the_cpu_writes_the_reference_keys(tmp_path):
     assert "extrapolated multilinearly" in recs["card"]["note"]
     assert tex.finalize_cell(str(tmp_path), "gemma3-1b", "decode_32k",
                              "card")["cost"] == recs["card"]["cost"]
-    refused = _cli("--arch", "gemma3-1b", "--shape", "decode_32k", "--out",
-                   str(tmp_path / "x"))
+    refused = _cli("--arch", "gemma3-1b", "--shape", "decode_32k",
+                   "--probes", "--out", str(tmp_path / "x"))
     assert refused.returncode != 0 and "no CUDA device" in refused.stderr
 
 

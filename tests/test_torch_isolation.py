@@ -164,7 +164,7 @@ SCRIPT = textwrap.dedent("""
     assert len(registry.all_cells()) == 39
     cell = dryrun.run_cell("gemma3-1b", "decode_32k", "cpu", overrides=dict(
         d_model=32, n_heads=2, d_head=16, d_ff=64, vocab=64, seq=32,
-        batch=2))
+        batch=2), abstract=False)
     rec = dryrun.mesh_record("gemma3-1b", "decode_32k", "card", cell,
                              cell["total"], dryrun.device_info("cpu"))
     assert rec["ok"] and rec["roofline"]["bottleneck"] in (
@@ -204,7 +204,8 @@ SCRIPT = textwrap.dedent("""
                  lambda: dlrm_mlperf.smoke(),
                  lambda: graphsage_reddit.smoke(),
                  lambda: registry.get("mwis").smoke(),
-                 lambda: dryrun.run_cell("gemma3-1b", "decode_32k")):
+                 lambda: dryrun.run_cell("gemma3-1b", "decode_32k",
+                                         abstract=False)):
         try:
             call()
         except RuntimeError as e:

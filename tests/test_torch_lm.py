@@ -216,7 +216,7 @@ def test_cache_write_clamps_as_dynamic_update_slice(cache_len):
     want, (wk, wv) = JT._attention(jx, lp_j, cfg_j, jnp.int32(0),
                                    jnp.asarray(pos), kv_cache=(jk, jv),
                                    cache_len=jnp.int32(cache_len))
-    got, (gk, gv) = TT._attention(tx, TT._layer(model.attn, 0), cfg_t, 0,
+    got, (gk, gv) = TT._attention(tx, TT._layers(model.attn)[0], cfg_t, 0,
                                   torch.from_numpy(pos), kv_cache=(tk, tv),
                                   cache_len=cache_len)
     slot = min(cache_len, 5)

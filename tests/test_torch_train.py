@@ -406,8 +406,8 @@ def test_moe_drops_at_capacity_exactly_as_the_reference():
     assert 0 < wkeep.sum() < NA
     assert np.array_equal(keep.numpy(), wkeep)
     assert np.array_equal(slot.numpy(), wslot)
-    lp_t = TT._layer(TT.Transformer(ct, MC.nest(convert.params(tree))).ffn,
-                     0)
+    lp_t = TT._layers(TT.Transformer(ct, MC.nest(convert.params(tree)))
+                      .ffn)[0]
     with torch.no_grad():
         got, aux = TT._moe_ffn(torch.from_numpy(x), lp_t, ct)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
