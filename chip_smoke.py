@@ -228,7 +228,13 @@ continues):
                with each layer's weights indexed from the stack: its
                bytes and ``select_backward`` bytes both ways (no more
                FLOPs, fewer bytes and no ``select_backward`` with the
-               layers cut by ``unbind``, or it fails);
+               layers cut by ``unbind``, or it fails); the
+               ``DRYRUN_SHARDED`` cells (qwen3-moe ``train_4k`` at L 2 on
+               ``single``, DLRM ``train_batch`` on ``multi``) as sharded
+               programs on the fake production meshes, each beside its
+               even split (argument bytes, collectives by kind,
+               t_collective_s, bottleneck, host_s; a failed sharded count
+               fails);
                ``compress_int8_ef`` / ``topk_ef`` on CUDA tensors bit for
                bit with the CPU; ``hierarchical_psum`` on 4 gloo ranks (2
                pods x 2 data) on cuda:0 against a flat ``all_reduce``.
@@ -333,6 +339,12 @@ DRYRUN_META = (("gemma3-1b", "decode_32k", dict(n_layers=2)),
 DRYRUN_META_ONLY = (("gatedgcn", "ogb_products", dict(n_layers=2)),
                     ("qwen3-moe-235b-a22b", "train_4k", dict(n_layers=2)))
 STACKED_CELL = ("qwen3-moe-235b-a22b", "train_4k")
+#: Phase 21: cells counted as a sharded program on a production mesh
+#: (``launch.dryrun``'s ``single`` / ``multi`` records: one rank of a
+#: fake process group on meta DTensors), each beside its even split.
+DRYRUN_SHARDED = (("qwen3-moe-235b-a22b", "train_4k", dict(n_layers=2),
+                   "single"),
+                  ("dlrm-mlperf", "train_batch", {}, "multi"))
 
 #: Phase 14's two-shard and ``--descent auto`` runs serve the first this
 #: many requests of the 192-request stream (its other runs, the whole
@@ -2121,7 +2133,7 @@ def lm_decode_at_width(dev, opts) -> None:
     gen = torch.Generator(device=dev).manual_seed(opts.seed)
     model = TM.Transformer(cfg, MC.init_params(TM.param_specs(cfg), gen,
                                                dev))
-    (k_shape, dt), _ = TM.make_kv_cache_specs(cfg, B, S)
+    ((k_shape, dt), _), _ = TM.make_kv_cache_specs(cfg, B, S)
     kc = torch.randn(k_shape, generator=gen, dtype=dt, device=dev)
     vc = torch.randn(k_shape, generator=gen, dtype=dt, device=dev)
     torch.cuda.synchronize()
@@ -2173,8 +2185,8 @@ def lm_decode_at_width(dev, opts) -> None:
     t0 = time.time()
     gen = torch.Generator().manual_seed(opts.seed)
     params = MC.init_params(TM.param_specs(small), gen, "cpu")
-    (k_shape, dt), _ = TM.make_kv_cache_specs(small, LM_CHECK["batch"],
-                                              LM_CHECK["seq"])
+    ((k_shape, dt), _), _ = TM.make_kv_cache_specs(small, LM_CHECK["batch"],
+                                                   LM_CHECK["seq"])
     kc = torch.randn(k_shape, generator=gen, dtype=dt)
     vc = torch.randn(k_shape, generator=gen, dtype=dt)
     runs = {"cpu": (TM.Transformer(small, params), kc.clone(), vc.clone()),
@@ -3194,6 +3206,54 @@ def abstract_phase(dev, opts) -> dict:
     return launched
 
 
+def sharded_phase(opts) -> None:
+    """Phase 21: each ``DRYRUN_SHARDED`` cell counted as a sharded program
+    on its production mesh by the dry-run's default route, beside the
+    same mesh's even split of the unsharded count: per-device argument
+    bytes, collective bytes and calls by kind, t_collective_s, the
+    bottleneck and host_s.  No card is used; a failed sharded count fails
+    the run."""
+    from repro_torch.launch import dryrun
+
+    info = dryrun.device_info("meta")
+    for arch_id, shape, ov, mesh in DRYRUN_SHARDED:
+        t0 = time.time()
+        before = launch_counts()
+        cell = dryrun.run_cell(arch_id, shape, overrides=ov, seed=opts.seed,
+                               sharded=(mesh,))
+        got = {k: v - before[k] for k, v in launch_counts().items()
+               if v - before[k]}
+        sharded = cell["sharded"][mesh]
+        if "error" in sharded or got:
+            fail(f"dryrun: {arch_id} × {shape} {ov} sharded on {mesh}: "
+                 f"launches {got}; {sharded.get('error', '')}")
+        rec = dryrun.mesh_record(arch_id, shape, mesh, cell, cell["total"],
+                                 info, ov)
+        even = dryrun.mesh_record(arch_id, shape, mesh,
+                                  {k: v for k, v in cell.items()
+                                   if k != "sharded"}, cell["total"], info,
+                                  ov)
+        if not (rec["sharded"] and rec["collectives"]
+                and rec["roofline"]["t_collective_s"] > 0):
+            fail(f"dryrun: {arch_id} × {shape} {ov} on {mesh}: a sharded "
+                 f"record without collectives: {rec}")
+        rf, erf = rec["roofline"], even["roofline"]
+        phase("dryrun", f"{arch_id} × {shape} {ov or 'full'} sharded on "
+                        f"{mesh} ({rec['n_chips']} ranks, counted on rank "
+                        f"0): argument bytes/dev "
+                        f"{rec['memory']['argument_bytes']} (even split "
+                        f"{even['memory']['argument_bytes']:.6e}); "
+                        f"collectives {rec['collectives']} (calls "
+                        f"{rec['collective_calls']}); t_collective_s "
+                        f"{rf['t_collective_s']:.6e} (even split "
+                        f"{erf['t_collective_s']:.6e}); bottleneck "
+                        f"{rf['bottleneck']} (even split "
+                        f"{erf['bottleneck']}); "
+                        f"{dryrun.summary_line(rec)}; host_s "
+                        f"{rec['host_s']:.3f} (cell {time.time() - t0:.1f}"
+                        f" s)")
+
+
 def indexed_layer_slices(stacked: dict) -> list:
     """Layer i's weights indexed from each stacked ``[L, ...]`` weight,
     ``p[i]``: the slicing ``models.common.layer_slices`` replaced (each
@@ -3339,7 +3399,8 @@ def dryrun_phase(dev, opts, probe: dict) -> None:
     for arch_id, shape in DRYRUN_FULL:
         # the dry-run's default route: the cell on meta at its full shape
         before = launch_counts()
-        cell = dryrun.run_cell(arch_id, shape, dev, seed=opts.seed)
+        cell = dryrun.run_cell(arch_id, shape, dev, seed=opts.seed,
+                               sharded=())
         rec = dryrun.mesh_record(arch_id, shape, "card", cell, cell["total"],
                                  dryrun.device_info("meta"))
         got = {k: v - before[k] for k, v in launch_counts().items()
@@ -3410,6 +3471,7 @@ def dryrun_phase(dev, opts, probe: dict) -> None:
         launched[k] = launched.get(k, 0) + v
     phase("dryrun", f"abstract count against the card: "
                     f"{time.time() - t_abstract:.1f} s")
+    sharded_phase(opts)
     compression_card_and_cpu(dev, opts.seed)
     missing = [k for k in ("segment_fused", "segment_sum", "embedding_bag",
                            "embedding_bag_backward") if not launched.get(k)]

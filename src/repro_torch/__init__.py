@@ -16,6 +16,8 @@ GPU they raise instead of running on the CPU; the tests pass
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 
@@ -32,3 +34,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "to run the port on the CPU"
         )
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """Is ``x`` a DTensor (the dry-run's sharded count)?  No DTensor exists
+    before ``torch.distributed.tensor`` is loaded, so on every other run
+    this is a dict lookup, and nothing is imported."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)

@@ -27,9 +27,16 @@ every aten op the run dispatches and totals
     moves a tensor between the host and a device counts its output under
     ``transfer_bytes`` instead (on the CPU there is no such op);
   * collective bytes by kind, under ``hlo.py``'s convention (the bytes of
-    the op's output): the ``c10d`` ops map onto ``all-reduce``,
-    ``all-gather``, ``reduce-scatter`` and ``all-to-all``; the aten ops a
-    process group's backend runs inside them are not counted;
+    the op's output): the ``c10d`` ops (whose first argument is their
+    output) and the functional collectives DTensor issues
+    (``_c10d_functional``, whose output is their result; ``wait_tensor``
+    counts nothing) map onto ``all-reduce``, ``all-gather``,
+    ``reduce-scatter`` and ``all-to-all``; the aten ops a process group's
+    backend runs inside them are not counted.  Each collective is also
+    listed in program order (``collective_ops``, the counterpart of
+    ``hlo.collective_ops``).  A shard → shard redistribution counts as
+    one ``all-to-all`` of its output, whatever a CPU-typed mesh lowers it
+    to (:func:`capture_dtensor`);
   * the hand-written kernels by their own formulas: each public kernel op
     enters :func:`repro_torch.kernels.work_scope`, which records one unit
     of the kernel with its ``<name>/cost.py`` work (operations and the
@@ -39,13 +46,20 @@ every aten op the run dispatches and totals
 
 The same counter runs on meta tensors (the dry-run's abstract count: a
 cell at its full shape with no memory), where every op dispatches for its
-output's shape alone and counts as on the card.  On meta it also tallies
+output's shape alone and counts as on the card.  On DTensors (the sharded
+count: one rank of a fake process group, ``launch.mesh.
+make_production_mesh``) it counts that rank's local work: an op on
+DTensors is passed on (``NotImplemented``), so the counter sees the local
+ops DTensor runs on each shard and the collectives it issues, and, within
+:func:`capture_dtensor`, not the ops by which DTensor propagates
+shardings (on ``FakeTensor``s or on global-shape tensors).  On meta it also tallies
 the bytes of the storages the run creates, alive at once at the peak
 (:class:`StorageTally`): the run's temporary memory.  On the card the
 tally is asked for where it is held against the allocator's peak.
 
-The reference's HLO-text parser (``collective_bytes``, ``collective_ops``,
-``count_op``) has no meaning for torch and is not ported.
+The reference's HLO-text parser itself is not ported: the counter's
+``collectives`` and ``collective_ops`` stand for its ``collective_bytes``
+and ``collective_ops``; ``count_op`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ import weakref
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -72,6 +87,23 @@ COLLECTIVE_KINDS = {
     "reduce_scatter_tensor_coalesced_": "reduce-scatter",
     "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
 }
+#: Functional collective (``_c10d_functional``, ``_c10d_functional_autograd``,
+#: ``_dtensor``) → ``hlo.py``'s kind, counted by the bytes of its output;
+#: the other ops of those namespaces (``wait_tensor``, wrappers) count 0.
+FUNCTIONAL_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "reduce_scatter_tensor_out": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+}
+_FUNCTIONAL = frozenset({"_c10d_functional", "_c10d_functional_autograd",
+                         "_dtensor"})
 #: aten ops that return a tensor sharing its input's memory without being
 #: marked as views in their schema.
 _VIEW_LIKE = frozenset({"_unsafe_view", "lift_fresh", "alias"})
@@ -313,9 +345,14 @@ def op_flops(func, args: tuple, kwargs: dict, out) -> Flops:
     return formula(*args, **kwargs, out_val=out) if formula else {}
 
 
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor" and hasattr(x, "_local_tensor")
+
+
 def _tensors(x) -> list:
+    """The tensors in ``x`` (a DTensor's local shard in its place)."""
     if isinstance(x, torch.Tensor):
-        return [x]
+        return [x._local_tensor if _is_dtensor(x) else x]
     if isinstance(x, (list, tuple)):
         return [t for v in x for t in _tensors(v)]
     if isinstance(x, dict):
@@ -336,6 +373,80 @@ def _crosses_devices(name: str, ins: list, outs: list) -> bool:
     """Does this copy move data between device types (host ↔ card)?"""
     return name in _COPIES and len(
         {t.device.type for t in ins[:2] + outs}) > 1
+
+
+class _Hidden:
+    """``fn`` called with every op inside hidden from the active
+    :class:`WorkCounter` (any other attribute is ``fn``'s)."""
+
+    def __init__(self, fn: Callable):
+        self._fn = fn
+
+    def __call__(self, *args, **kwargs):
+        if not kernels.work_counters:
+            return self._fn(*args, **kwargs)
+        return kernels.work_counters[-1].run_hidden(self._fn, *args,
+                                                    **kwargs)
+
+    def __getattr__(self, name: str):
+        return getattr(self._fn, name)
+
+
+_CAPTURE_DEPTH = 0
+
+
+@contextlib.contextmanager
+def capture_dtensor():
+    """Within: a :class:`WorkCounter` counts a DTensor program as one rank
+    runs it.  On exit torch's own functions are back in place (nested
+    uses restore once, at the outermost exit); with no counter active
+    DTensor runs as torch has it even within.
+
+      * DTensor's sharding propagation (``ShardingPropagator.
+        propagate_op_sharding``, its cache and what it calls) is hidden:
+        on a cache miss it may run ops on global-shape tensors, which are
+        no rank's work;
+      * a shard → shard redistribution (``Shard._to_new_shard_dim`` →
+        ``placement_types.shard_dim_alltoall``) counts as one
+        ``all-to-all`` of its output bytes, the ops inside hidden.  On a
+        mesh of device type ``"cpu"`` torch lowers it to an all-gather of
+        the whole tensor and a chunk ("CPU process group does not support
+        alltoall yet"); the program asks for an all-to-all, and that is
+        what the count records."""
+    global _CAPTURE_DEPTH
+    from torch.distributed.tensor import DTensor, placement_types
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    names = ("propagate_op_sharding", "propagate_op_sharding_non_cached")
+    if _CAPTURE_DEPTH == 0:
+        original = placement_types.shard_dim_alltoall
+
+        def shard_dim_alltoall(*args, **kwargs):
+            if not kernels.work_counters:
+                return original(*args, **kwargs)
+            wc = kernels.work_counters[-1]
+            out = wc.run_hidden(original, *args, **kwargs)
+            wc.collective("all-to-all", _nbytes(_tensors(out)))
+            return out
+
+        # the propagator's own attributes (the cache is one, the method
+        # under it is the class's), to put back on exit
+        saved = {name: vars(prop).get(name) for name in names}
+        for name in names:
+            setattr(prop, name, _Hidden(getattr(prop, name)))
+        placement_types.shard_dim_alltoall = shard_dim_alltoall
+    _CAPTURE_DEPTH += 1
+    try:
+        yield
+    finally:
+        _CAPTURE_DEPTH -= 1
+        if _CAPTURE_DEPTH == 0:
+            for name, own in saved.items():
+                if own is None:
+                    delattr(prop, name)
+                else:
+                    setattr(prop, name, own)
+            placement_types.shard_dim_alltoall = original
 
 
 class StorageTally:
@@ -395,6 +506,8 @@ class WorkCounter(TorchDispatchMode):
         self.bytes = 0
         self.transfer_bytes = 0
         self.collectives: Dict[str, int] = collections.Counter()
+        #: (kind, bytes) of each collective, in program order
+        self.collective_ops: list = []
         self.kernels: Dict[str, Dict[str, Any]] = {}
         #: per aten op: [calls, flops, bytes, transcendentals] (what
         #: differs where two runs disagree)
@@ -434,30 +547,49 @@ class WorkCounter(TorchDispatchMode):
         finally:
             self._hidden -= 1
 
+    def collective(self, kind: str, n_bytes: int) -> None:
+        """Record one collective of ``kind`` whose output is ``n_bytes``."""
+        self.collectives[kind] += n_bytes
+        self.collective_ops.append((kind, n_bytes))
+
+    def run_hidden(self, fn: Callable, *args, **kwargs):
+        """``fn(*args, **kwargs)`` with every op inside hidden."""
+        self._hidden += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self._hidden -= 1
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if self._hidden:
             return func(*args, **kwargs)
+        if any(t.__name__ == "DTensor" for t in types):
+            # DTensor runs the op again on the local shards, and here
+            return NotImplemented
+        name = func._overloadpacket.__name__
         if func.namespace == "c10d":
-            self._hidden += 1
-            try:
-                out = func(*args, **kwargs)
-            finally:
-                self._hidden -= 1
-            kind = COLLECTIVE_KINDS.get(func._overloadpacket.__name__)
+            out = self.run_hidden(func, *args, **kwargs)
+            kind = COLLECTIVE_KINDS.get(name)
+            if kind is not None:    # the in-place ops' first argument
+                self.collective(kind, _nbytes(_tensors(args[0])))
+            return out
+        if func.namespace in _FUNCTIONAL:
+            out = self.run_hidden(func, *args, **kwargs)
+            kind = FUNCTIONAL_KINDS.get(name)
             if kind is not None:
-                self.collectives[kind] += _nbytes(_tensors(args[0]))
+                self.collective(kind, _nbytes(_tensors(out)))
             return out
         out = func(*args, **kwargs)
-        name = func._overloadpacket.__name__
+        ins, outs = _tensors((args, kwargs)), _tensors(out)
+        if any(isinstance(t, FakeTensor) for t in ins + outs):
+            # DTensor's sharding propagation, on global shapes
+            return out
         if self.tally is not None:
             # a view's input may be a storage no op has read yet
-            ins, outs = _tensors((args, kwargs)), _tensors(out)
             self.tally.add(ins + outs)
         if func.is_view or name in _VIEW_LIKE:
             return out
-        if self.tally is None:
-            ins, outs = _tensors((args, kwargs)), _tensors(out)
         if _crosses_devices(name, ins, outs):
             self.transfer_bytes += _nbytes(outs)
             return out
@@ -484,6 +616,7 @@ class WorkCounter(TorchDispatchMode):
                     flops_by_class=dict(self.flops_by_class),
                     bytes=self.bytes, transfer_bytes=self.transfer_bytes,
                     collectives=dict(self.collectives),
+                    collective_ops=[list(c) for c in self.collective_ops],
                     kernels={k: dict(v) for k, v in
                              sorted(self.kernels.items())})
 

@@ -7,9 +7,12 @@ v5e's):
     memory term     = bytes_per_device / HBM_bw
     collective term = collective_bytes_per_device / link_bw
 
-The terms come from :mod:`repro_torch.analysis.count`'s totals of a run
-divided over the mesh's chips (``launch/dryrun.py``).  Plus MODEL_FLOPS /
-FLOPs — the useful-compute fraction that catches recompute waste.
+The terms are one device's (``launch/dryrun.py``): rank 0's count of a
+sharded program (LM, DLRM) or :mod:`repro_torch.analysis.count`'s totals
+of a run divided over the mesh's chips (GNN).  Plus MODEL_FLOPS / FLOPs —
+the useful-compute fraction that catches recompute waste.  The collective
+term takes the NVLink rate inside one 8-card node (``LINK_BW``) whatever
+the mesh: a 256- or 512-card mesh spans nodes, whose links are slower.
 """
 
 from __future__ import annotations

@@ -9,12 +9,19 @@ The port of ``repro/configs/base.py``: the shape tables (``MWIS_SHAPES``
 lives in ``configs/mwis.py`` and is re-exported here), :class:`BuildResult`,
 :class:`ArchDef`, :func:`pad_multiple`, the abstract inputs (:func:`sds`,
 :func:`opt_abstract`) and the four family builders.  Steps train through
-``train/step.py`` with AdamW at its defaults, as the reference's do.  The
-reference's shardings and FSDP axes (``ns``, ``sharding_tree``,
-``opt_shardings``, ``fsdp_axes_for``) describe a GSPMD program on a TPU
-pod and are not ported; a probe point (fewer layers, a smaller batch,
-fewer table rows) comes in through ``overrides``, so that a cell's step
-fits one card.
+``train/step.py`` with AdamW at its defaults, as the reference's do.  A
+probe point (fewer layers, a smaller batch, fewer table rows) comes in
+through ``overrides``.
+
+The reference's shardings (:func:`fsdp_axes_for`, :func:`sharding_tree`,
+:func:`opt_shardings`, :func:`ns`) are DTensor placements on a
+``DeviceMesh`` here.  ``make_inputs("meta", seed, mesh)`` of an LM or
+DLRM cell lays its inputs out on ``mesh`` as the reference's
+``in_shardings`` do (the weights by their specs, the optimizer state as
+the weights, the batch over the FSDP axes, the decode cache by
+``transformer.make_kv_cache_specs``, retrieval's candidates over the FSDP
+axes): DTensors whose local shards are meta tensors, one rank's inputs
+of the dry-run's sharded count.
 
 ``make_inputs(device, seed)`` makes a cell's inputs.  The index arrays
 whose data sets work that the host packs or a kernel formula counts (the
@@ -36,7 +43,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import is_dtensor, resolve_device
 from repro_torch.models import common as MC
 from repro_torch.train import optimizer as opt
 from repro_torch.train.step import train_step
@@ -127,13 +134,53 @@ def sds(shape, dtype) -> torch.Tensor:
 def opt_abstract(params_abs) -> opt.AdamWState:
     """The AdamW state of ``params_abs`` on meta: the int32 step and the
     float32 moments, shaped as ``optimizer.adamw_init`` makes them; no
-    init runs."""
+    init runs.  DTensor weights give DTensor moments of the same
+    placements and a replicated step (``opt_shardings``)."""
     def f32(p):
+        if is_dtensor(p):
+            return MC.abstract_dtensor(p.shape, torch.float32, p.placements,
+                                       p.device_mesh)
         return sds(p.shape, torch.float32)
 
-    return opt.AdamWState(step=sds((), torch.int32),
-                          mu=opt.tree_map(f32, params_abs),
+    first = opt.leaves(params_abs)[0]
+    if is_dtensor(first):
+        mesh = first.device_mesh
+        step = MC.abstract_dtensor((), torch.int32, ns(mesh), mesh)
+    else:
+        step = sds((), torch.int32)
+    return opt.AdamWState(step=step, mu=opt.tree_map(f32, params_abs),
                           nu=opt.tree_map(f32, params_abs))
+
+
+def fsdp_axes_for(mesh) -> Tuple[str, ...]:
+    names = mesh.mesh_dim_names
+    return tuple(a for a in names if a in ("pod", "data"))
+
+
+def sharding_tree(specs, mesh):
+    return MC.param_shardings(specs, mesh)
+
+
+def opt_shardings(param_sh, mesh) -> opt.AdamWState:
+    """The AdamW state's placements: the step replicated, the moments as
+    the weights."""
+    return opt.AdamWState(step=ns(mesh), mu=param_sh, nu=param_sh)
+
+
+def ns(mesh, *spec, shape=None) -> tuple:
+    """The placements of ``spec`` on ``mesh`` (sanitised for ``shape``
+    where it is given: the reference's ``NamedSharding``; without a shape
+    every named dim must divide)."""
+    if shape is None:
+        shape = (0,) * len(spec)      # 0 divides by every axis
+    return MC.placements(tuple(shape), spec, mesh)
+
+
+def sharded(x: torch.Tensor, mesh, *spec) -> torch.Tensor:
+    """A meta input of ``x``'s shape and dtype as a DTensor on ``mesh``
+    laid out by ``spec`` (sanitised), the local shard meta."""
+    return MC.abstract_dtensor(tuple(x.shape), x.dtype,
+                               ns(mesh, *spec, shape=x.shape), mesh)
 
 
 def _generator(device, seed: int
@@ -151,8 +198,8 @@ def _params(specs, gen, dev):
     return MC.init_params(specs, gen, dev)
 
 
-def _train_inputs(specs, gen, dev) -> Tuple[Any, Any]:
-    params = _params(specs, gen, dev)
+def _train_inputs(params, dev) -> Tuple[Any, Any]:
+    """``params`` and their AdamW state (abstract on meta)."""
     if dev.type == "meta":
         return params, opt_abstract(params)
     return params, opt.adamw_init(params)
@@ -184,17 +231,25 @@ def lm_build(cfg, shape_name: str,
     cfg = _replace(cfg, overrides)
     B = int((overrides or {}).get("batch", meta["batch"]))
     S = int((overrides or {}).get("seq", meta["seq"]))
-    specs = T.param_specs(cfg)
     ocfg = opt.AdamWConfig()
 
-    def tokens(gen, dev, shape):
-        return _randint(gen, dev, cfg.vocab, shape)
+    def tokens(gen, dev, shape, mesh=None):
+        t = _randint(gen, dev, cfg.vocab, shape)
+        return t if mesh is None else sharded(t, mesh, fsdp_axes_for(mesh))
+
+    def weights(gen, dev, mesh):
+        if mesh is None:
+            return _params(T.param_specs(cfg), gen, dev)
+        _require_meta(dev)
+        return MC.abstract_sharded_params(
+            T.param_specs(cfg, fsdp_axes_for(mesh)), mesh)
 
     if meta["kind"] == "train":
-        def make_inputs(device, seed: int):
+        def make_inputs(device, seed: int, mesh=None):
             dev, gen = _generator(device, seed)
-            params, ostate = _train_inputs(specs, gen, dev)
-            batch = {k: tokens(gen, dev, (B, S)) for k in ("tokens", "labels")}
+            params, ostate = _train_inputs(weights(gen, dev, mesh), dev)
+            batch = {k: tokens(gen, dev, (B, S), mesh)
+                     for k in ("tokens", "labels")}
             return params, ostate, batch
 
         def train(params, ostate, batch):
@@ -205,9 +260,9 @@ def lm_build(cfg, shape_name: str,
         return BuildResult(train, make_inputs, flops, cfg=cfg)
 
     if meta["kind"] == "prefill":
-        def make_inputs(device, seed: int):
+        def make_inputs(device, seed: int, mesh=None):
             dev, gen = _generator(device, seed)
-            return _params(specs, gen, dev), tokens(gen, dev, (B, S))
+            return weights(gen, dev, mesh), tokens(gen, dev, (B, S), mesh)
 
         @torch.no_grad()
         def prefill(params, toks):
@@ -217,13 +272,17 @@ def lm_build(cfg, shape_name: str,
         return BuildResult(prefill, make_inputs, flops, cfg=cfg)
 
     # decode: one new token against a seq-long KV cache
-    def make_inputs(device, seed: int):
+    def make_inputs(device, seed: int, mesh=None):
         dev, gen = _generator(device, seed)
-        params = _params(specs, gen, dev)
-        (k_shape, k_dt), (v_shape, v_dt) = T.make_kv_cache_specs(cfg, B, S)
+        params = weights(gen, dev, mesh)
+        fsdp = ("data",) if mesh is None else fsdp_axes_for(mesh)
+        ((k_shape, k_dt), (v_shape, v_dt)), (k_ps, v_ps) = (
+            T.make_kv_cache_specs(cfg, B, S, fsdp, shard_seq=B == 1))
         kc = torch.zeros(k_shape, dtype=k_dt, device=dev)
         vc = torch.zeros(v_shape, dtype=v_dt, device=dev)
-        return params, kc, vc, tokens(gen, dev, (B, 1)), S - 1
+        if mesh is not None:
+            kc, vc = sharded(kc, mesh, *k_ps), sharded(vc, mesh, *v_ps)
+        return params, kc, vc, tokens(gen, dev, (B, 1), mesh), S - 1
 
     @torch.no_grad()
     def decode(params, kc, vc, toks, cache_len):
@@ -234,6 +293,12 @@ def lm_build(cfg, shape_name: str,
     flops = 2.0 * cfg.n_active_params() * B
     return BuildResult(decode, make_inputs, flops,
                        note="decode against %d-token cache" % S, cfg=cfg)
+
+
+def _require_meta(dev: torch.device) -> None:
+    if dev.type != "meta":
+        raise ValueError(f"inputs laid out on a mesh are meta DTensors "
+                         f"(the sharded count), not {dev.type} tensors")
 
 
 def gnn_build(module, cfg, shape_name: str,
@@ -275,7 +340,8 @@ def gnn_build(module, cfg, shape_name: str,
             batch.update(pos=_randn(gen, dev, (N, 3)),
                          energy=_randn(gen, dev, (G,)), n_graphs=G)
         batch.update({k: v.to(dev) for k, v in host.items()}, host=host)
-        params, ostate = _train_inputs(module.param_specs(cfg), gen, dev)
+        params, ostate = _train_inputs(
+            _params(module.param_specs(cfg), gen, dev), dev)
         return params, ostate, batch
 
     def train(params, ostate, batch):
@@ -300,7 +366,6 @@ def dlrm_build(cfg, shape_name: str,
     if cap is not None:
         cfg = dataclasses.replace(
             cfg, vocabs=tuple(min(v, int(cap)) for v in cfg.vocabs))
-    specs = M.param_specs(cfg)
     B = meta["batch"]
     ocfg = opt.AdamWConfig()
 
@@ -313,20 +378,34 @@ def dlrm_build(cfg, shape_name: str,
         + cfg.n_sparse * cfg.embed_dim
     )
 
-    def features(gen, dev, seed: int, n: int):
+    def features(gen, dev, seed: int, n: int, mesh=None):
         host_gen = torch.Generator().manual_seed(seed)
         sparse = torch.stack([
             torch.randint(0, v, (n,), generator=host_gen, dtype=torch.int32)
             for v in cfg.vocabs], 1)
-        return dict(dense=_randn(gen, dev, (n, cfg.n_dense)),
-                    sparse=sparse.to(dev), host=dict(sparse=sparse))
+        batch = dict(dense=_randn(gen, dev, (n, cfg.n_dense)),
+                     sparse=sparse.to(dev), host=dict(sparse=sparse))
+        if mesh is not None:
+            f = fsdp_axes_for(mesh)
+            batch.update(dense=sharded(batch["dense"], mesh, f, None),
+                         sparse=sharded(batch["sparse"], mesh, f, None))
+        return batch
+
+    def weights(gen, dev, mesh):
+        if mesh is None:
+            return _params(M.param_specs(cfg), gen, dev)
+        _require_meta(dev)
+        return MC.abstract_sharded_params(
+            M.param_specs(cfg, fsdp_axes_for(mesh)), mesh)
 
     if meta["kind"] == "train":
-        def make_inputs(device, seed: int):
+        def make_inputs(device, seed: int, mesh=None):
             dev, gen = _generator(device, seed)
-            params, ostate = _train_inputs(specs, gen, dev)
-            batch = dict(features(gen, dev, seed, B),
-                         labels=_randint(gen, dev, 2, (B,)))
+            params, ostate = _train_inputs(weights(gen, dev, mesh), dev)
+            batch = features(gen, dev, seed, B, mesh)
+            labels = _randint(gen, dev, 2, (B,))
+            batch["labels"] = labels if mesh is None else sharded(
+                labels, mesh, fsdp_axes_for(mesh))
             return params, ostate, batch
 
         def train(params, ostate, batch):
@@ -336,10 +415,10 @@ def dlrm_build(cfg, shape_name: str,
         return BuildResult(train, make_inputs, 3.0 * fwd, cfg=cfg)
 
     if meta["kind"] == "serve":
-        def make_inputs(device, seed: int):
+        def make_inputs(device, seed: int, mesh=None):
             dev, gen = _generator(device, seed)
-            params = _params(specs, gen, dev)
-            return params, features(gen, dev, seed, B)
+            params = weights(gen, dev, mesh)
+            return params, features(gen, dev, seed, B, mesh)
 
         @torch.no_grad()
         def serve(params, batch):
@@ -350,12 +429,15 @@ def dlrm_build(cfg, shape_name: str,
     # retrieval: 1 query × n_candidates batched dot
     nc = meta["n_candidates"]
 
-    def make_inputs(device, seed: int):
+    def make_inputs(device, seed: int, mesh=None):
         dev, gen = _generator(device, seed)
-        params = _params(specs, gen, dev)
+        params = weights(gen, dev, mesh)
         dense = _randn(gen, dev, (1, cfg.n_dense))
-        return params, dict(dense=dense, candidates=_randint(
-            gen, dev, cfg.vocabs[0], (1, nc)))
+        cand = _randint(gen, dev, cfg.vocabs[0], (1, nc))
+        if mesh is not None:
+            dense = sharded(dense, mesh)
+            cand = sharded(cand, mesh, None, fsdp_axes_for(mesh))
+        return params, dict(dense=dense, candidates=cand)
 
     @torch.no_grad()
     def retrieve(params, batch):
@@ -436,6 +518,8 @@ def rank_counts(out) -> Dict[str, Any]:
     import json
 
     recs = [json.loads(str(r)) for r in out.pop("count")]
+    for r in recs:    # each rank's program order: no sum
+        r.pop("collective_ops", None)
     rec = _sum_records(recs)
     rec["run_s"] = max(r["run_s"] for r in recs)
     return rec

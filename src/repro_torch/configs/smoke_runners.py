@@ -46,7 +46,8 @@ def lm_smoke(cfg: TM.TransformerConfig, device: str = "cuda") -> None:
     _assert_finite(params2, f"{cfg.name} params after update")
 
     # decode step against a KV cache
-    (k_shape, k_dt), (v_shape, v_dt) = TM.make_kv_cache_specs(cfg, B, 64)
+    ((k_shape, k_dt), (v_shape, v_dt)), _ = TM.make_kv_cache_specs(
+        cfg, B, 64)
     kc = torch.zeros(k_shape, dtype=k_dt, device=dev)
     vc = torch.zeros(v_shape, dtype=v_dt, device=dev)
     with torch.no_grad():

@@ -20,6 +20,20 @@ L 2, 4 and extrapolated in L, which is exact for uniform layers without a
 backward; gemma3, whose every 6th layer is global, at L 1, 2, 6, combined
 by layer kind (``analysis.extrapolate.affine``).
 
+On the production meshes (``single``, 256 chips; ``multi``, 512) an LM
+or DLRM cell is also counted as a sharded program, as the reference
+compiles one SPMD program: ``launch.mesh.make_production_mesh`` makes
+the reference's mesh over an in-process fake process group, this process
+rank 0; the inputs are meta DTensors laid out as the reference's
+``in_shardings`` (``make_inputs(..., mesh)``), the reference's activation
+hints are installed (``models.common.set_hint_mesh``), and the work
+counter counts rank 0's local ops and the collectives DTensor issues
+(``analysis.count``).  LM cells at the reference's layer probes (L 2, 4;
+gemma3 L 1, 2, 6 by layer kind), DLRM in one run.  An op DTensor cannot
+shard raises, and the mesh's record then says ``ok: false`` and why
+(exit code :data:`SHARDED_FAILED`); nothing falls back to the even split.
+GNN cells keep the even split of the unsharded count on those meshes.
+
 MWIS cells count one sweep-round of the per-PE path
 (``solvers.sweep_probe_shard_map_fn``) on ``--pes`` gloo ranks over an
 instance at the cell's per-PE shape, on ``--device``: a sweep-round's work
@@ -41,13 +55,15 @@ MoE capacity at the full batch.
 Per cell and mesh (``single`` 256 chips, ``multi`` 512, ``card`` 1) the
 record holds the counted FLOPs and bytes (``cost``), the transcendentals
 beside them (``transcendentals``), the FLOPs by op class
-(``flops_by_class``) and the collective bytes, split evenly over the
-chips (not a sharded program), the per-device memory, the three roofline terms and bottleneck (``analysis.roofline``,
+(``flops_by_class``) and the collective bytes per device (rank 0's of a
+sharded program, with ``collective_calls`` by kind; a GNN cell's split
+evenly over the chips), the per-device memory, the three roofline terms and bottleneck (``analysis.roofline``,
 H100 SXM5), the model FLOPs (the reference's formulas), ``run_s`` (the
 counted runs' device time; ``host_s``, their host time, on meta),
 ``counted_on`` (``meta``, ``cpu``, or the card's name and power limit)
-and the card's name and power limit.  One counted run of an (arch,
-shape) serves all three meshes.
+and the card's name and power limit.  The roofline's collective term
+takes ``analysis.roofline.LINK_BW``, the NVLink rate inside one 8-card
+node, also where a mesh spans nodes.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k \\
@@ -55,6 +71,8 @@ Usage:
   python -m repro_torch.launch.dryrun --all            # a subprocess a cell
   python -m repro_torch.launch.dryrun --arch grok-1-314b --shape train_4k
                                                  # meta: no card needed
+  python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k \\
+      --mesh single          # the record of the sharded program, 256 ranks
   python -m repro_torch.launch.dryrun --list
   python -m repro_torch.launch.dryrun --arch gemma3-1b --shape decode_32k \\
       --probes --device cpu --override d_model=64 ...  # the probe route
@@ -66,6 +84,8 @@ counterpart.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import gc
 import json
 import os
@@ -184,21 +204,31 @@ def _terms(rec: Dict[str, Any], kernels: Dict[str, str],
                          bytes=ks.get(k, {}).get("bytes", 0), op_class=c)
                  for k, c in kernels.items()},
         memory=dict(rec["memory"]),
+        **({"collective_calls": {k: rec["collective_calls"].get(k, 0)
+                                 for k in kinds}}
+           if "collective_calls" in rec else {}),
     )
 
 
 def _run_probe(arch, shape: str, tag: str, ov: Dict[str, Any],
-               point: Dict[str, int], device, seed: int) -> Dict[str, Any]:
-    """One counted run of the cell's step at one probe point."""
+               point: Dict[str, int], device, seed: int,
+               mesh=None) -> Dict[str, Any]:
+    """One counted run of the cell's step at one probe point; with a
+    ``mesh``, one rank's run of the sharded program on meta DTensors
+    (plain tensors the step makes count as replicated)."""
     from repro_torch.analysis import count
 
     built = arch.build(shape, ov)
     if built.measure is not None:
         _, rec = built.measure(device, seed)
     else:
-        inputs = built.make_inputs(device, seed)
+        inputs = (built.make_inputs(device, seed) if mesh is None
+                  else built.make_inputs(device, seed, mesh))
         _, rec = count.measure(built.fn, inputs, device)
         del inputs
+    calls = collections.Counter(k for k, _ in rec.pop("collective_ops", []))
+    if mesh is not None:
+        rec["collective_calls"] = dict(sorted(calls.items()))
     by_op = rec.pop("by_op", {})
     rec["top_ops"] = dict(sorted(by_op.items(), key=lambda kv: -kv[1][2])[
         :TOP_OPS])
@@ -214,6 +244,12 @@ def _free(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
 
+
+#: Families counted as a sharded program on the production meshes (the
+#: GNNs' terms are still split evenly; MWIS counts its per-PE program).
+SHARDED_FAMILIES = ("lm", "recsys")
+#: The production meshes, by whether they span two pods.
+_MULTI_POD = {"single": False, "multi": True}
 
 #: Archs whose FFN routes tokens to experts at a capacity.
 _MOE = ("qwen3-moe-235b-a22b", "grok-1-314b")
@@ -231,19 +267,12 @@ def _layer_kinds(cfg, n_layers: int) -> Dict[str, int]:
     return {"local_layers": n_layers - n_global, "global_layers": n_global}
 
 
-def _abstract_plan(arch, shape: str, cfg, pinned=()
-                   ) -> Tuple[List[Probe], Dict[str, int]]:
-    """The abstract count's probes and full point.  A prefill cell: the
-    reference's layer probes L 2, 4, or for an interleave of local and
-    global layers L 1, 2 and max(global_every, 3), one point a layer kind;
-    every other cell one run at its full shape (``full``).  A pinned
-    layer count is not probed."""
+def _layer_plan(arch, cfg) -> Tuple[List[Probe], Dict[str, int]]:
+    """The reference's layer probes of an LM cell and its full point: L 2,
+    4, or for an interleave of local and global layers L 1, 2 and
+    max(global_every, 3), one point a layer kind."""
     from repro_torch.analysis.extrapolate import FULL_LAYERS
-    from repro_torch.configs import base
 
-    if (arch.family != "lm" or base.LM_SHAPES[shape]["kind"] != "prefill"
-            or "n_layers" in pinned):
-        return [("full", {}, {})], {}
     full = FULL_LAYERS[arch.arch_id]
     if cfg.local_window and cfg.global_every > 1:
         ls = sorted({1, 2, max(cfg.global_every, 3)})
@@ -251,6 +280,31 @@ def _abstract_plan(arch, shape: str, cfg, pinned=()
                  for n in ls], _layer_kinds(cfg, full))
     return ([(f"L{n}", {"n_layers": n}, {"n_layers": n}) for n in (2, 4)],
             {"n_layers": full})
+
+
+def _abstract_plan(arch, shape: str, cfg, pinned=()
+                   ) -> Tuple[List[Probe], Dict[str, int]]:
+    """The abstract count's probes and full point.  A prefill cell: the
+    reference's layer probes (:func:`_layer_plan`); every other cell one
+    run at its full shape (``full``).  A pinned layer count is not
+    probed."""
+    from repro_torch.configs import base
+
+    if (arch.family != "lm" or base.LM_SHAPES[shape]["kind"] != "prefill"
+            or "n_layers" in pinned):
+        return [("full", {}, {})], {}
+    return _layer_plan(arch, cfg)
+
+
+def _sharded_plan(arch, cfg, pinned=()
+                  ) -> Tuple[List[Probe], Dict[str, int]]:
+    """The sharded count's probes and full point: an LM cell at the
+    reference's layer probes (:func:`_layer_plan`; every layer's work,
+    collectives, shards and saved residuals alike, so the count is
+    affine in the layers of each kind), DLRM one run."""
+    if arch.family != "lm" or "n_layers" in pinned:
+        return [("full", {}, {})], {}
+    return _layer_plan(arch, cfg)
 
 
 def _caveats(arch, shape: str, point: Dict[str, int]) -> List[str]:
@@ -277,9 +331,11 @@ def _caveats(arch, shape: str, point: Dict[str, int]) -> List[str]:
 
 
 def _abstract_cell(arch, shape: str, full_build, cli: Dict[str, Any],
-                   seed: int) -> Dict[str, Any]:
+                   seed: int, sharded=tuple(_MULTI_POD)) -> Dict[str, Any]:
     """``run_cell``'s abstract route: the cell counted on meta at its full
-    shape (prefill: at its layer probes, combined exactly)."""
+    shape (prefill: at its layer probes, combined exactly); an LM or DLRM
+    cell also as a sharded program on each production mesh of
+    ``sharded`` (``cell["sharded"][mesh]``, :func:`_sharded_count`)."""
     from repro_torch.analysis import extrapolate as ex
 
     plan, full_point = _abstract_plan(arch, shape, full_build.cfg,
@@ -299,21 +355,98 @@ def _abstract_cell(arch, shape: str, full_build, cli: Dict[str, Any],
                f"probes {', '.join(t for t, _, _ in plan)}, carried exactly "
                f"to {full_point} (layers of one kind alike, no backward); "
                f"temp bytes: the largest probe's")
-    return dict(family=arch.family, probes=probes, total=total,
+    cell = dict(family=arch.family, probes=probes, total=total,
                 model_flops=full_build.model_flops,
                 note="; ".join(x for x in [full_build.note, how] if x),
-                full_point=full_point, counted_on="meta")
+                build_note=full_build.note, full_point=full_point,
+                counted_on="meta")
+    if arch.family in SHARDED_FAMILIES and sharded:
+        from repro_torch.launch.mesh import release_fake_world
+
+        try:
+            cell["sharded"] = {m: _sharded_count(arch, shape, full_build,
+                                                 cli, seed, m)
+                               for m in sharded}
+        finally:
+            release_fake_world()
+    return cell
+
+
+#: The exit code of a cell whose sharded count failed on a mesh (its
+#: records written, that mesh's with ``ok: false``).
+SHARDED_FAILED = 3
+
+
+@contextlib.contextmanager
+def sharded_scope(mesh):
+    """Within: one rank's count of a sharded program on ``mesh`` — the
+    reference's activation hints on ``mesh`` (``models.common.
+    set_hint_mesh``), a work counter that counts that rank's local work
+    and collectives (``analysis.count.capture_dtensor``), and the plain
+    tensors a step makes taken as replicated (``implicit_replication``).
+    Everything is as it was on exit."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.analysis import count
+    from repro_torch.models import common as MC
+
+    MC.set_hint_mesh(mesh)
+    try:
+        with count.capture_dtensor(), implicit_replication():
+            yield
+    finally:
+        MC.set_hint_mesh(None)
+
+
+def _sharded_count(arch, shape: str, full_build, cli: Dict[str, Any],
+                   seed: int, mesh_kind: str) -> Dict[str, Any]:
+    """The cell as a sharded program on ``mesh_kind``'s production mesh
+    (``launch.mesh.make_production_mesh``: a fake process group of 256 or
+    512 ranks, this process rank 0), counted on rank 0 on meta DTensors
+    laid out as the reference's ``in_shardings`` (``make_inputs(...,
+    mesh)``) with the reference's activation hints installed
+    (:func:`sharded_scope`): {probes, total (rank 0's terms),
+    full_point, note}, or {error} where the count failed (an op DTensor
+    cannot shard raises; nothing falls back to the even split)."""
+    from repro_torch.analysis import extrapolate as ex
+    from repro_torch.launch.mesh import make_production_mesh
+
+    plan, full_point = _sharded_plan(arch, full_build.cfg, pinned=tuple(cli))
+    try:
+        mesh = make_production_mesh(multi_pod=_MULTI_POD[mesh_kind])
+        with sharded_scope(mesh):
+            probes = [_run_probe(arch, shape, tag, dict(ov, **cli), pt,
+                                 "meta", seed, mesh=mesh)
+                      for tag, ov, pt in plan]
+    except Exception:
+        return dict(error=traceback.format_exc()[-4000:])
+    kernels = {k: v["op_class"] for p in probes
+               for k, v in p.get("kernels", {}).items()}
+    kinds = sorted({k for p in probes for k in p["collectives"]})
+    total = ex.affine([(p["point"], _terms(p, kernels, kinds))
+                       for p in probes], full_point)
+    how = "counted in one run at the full shape"
+    if full_point:
+        how = (f"counted at layer probes {', '.join(t for t, _, _ in plan)}"
+               f", carried exactly to {full_point} (layers of one kind "
+               f"alike: their work, collectives and saved residuals)")
+    return dict(probes=probes, total=total, full_point=full_point,
+                note=how)
 
 
 def run_cell(arch_id: str, shape: str, device="cuda",
              overrides: Optional[Dict[str, Any]] = None, seed: int = 0,
-             abstract: bool = True) -> Dict[str, Any]:
+             abstract: bool = True,
+             sharded=tuple(_MULTI_POD)) -> Dict[str, Any]:
     """Count ``arch_id × shape``: {probes (their counts), total (the full
     cell's counted terms), model_flops, note, full_point, family,
     counted_on}.  An LM, GNN or DLRM cell is counted on meta at its full
     shape (``device`` is not used); with ``abstract=False`` (the
     superseded probe route) at its probe points on ``device``,
-    extrapolated.  An MWIS cell is counted on ``device`` either way."""
+    extrapolated.  An MWIS cell is counted on ``device`` either way.
+    On the abstract route an LM or DLRM cell is also counted as a
+    sharded program on each production mesh of ``sharded``
+    (``cell["sharded"]``)."""
     from repro_torch import resolve_device
     from repro_torch.analysis import extrapolate as ex
     from repro_torch.configs import registry
@@ -327,7 +460,7 @@ def run_cell(arch_id: str, shape: str, device="cuda",
     cli = dict(overrides or {})
     full_build = arch.build(shape, cli or None)
     if abstract and arch.family != "mwis":
-        return _abstract_cell(arch, shape, full_build, cli, seed)
+        return _abstract_cell(arch, shape, full_build, cli, seed, sharded)
     dev = resolve_device(device)
     plans, full_point = _probe_overrides(arch, shape, pinned=tuple(cli))
     abandoned = []
@@ -413,10 +546,18 @@ def mesh_record(arch_id: str, shape: str, mesh_kind: str,
                 cell: Dict[str, Any], terms: Dict[str, Any],
                 device: Dict[str, Any], overrides=None) -> Dict[str, Any]:
     """A record in the reference's format for ``terms`` (the cell's total
-    or one probe's) on ``mesh_kind``."""
+    or one probe's) on ``mesh_kind``.  A cell counted sharded on
+    ``mesh_kind`` gives :func:`_sharded_record` (its total there for the
+    cell's total)."""
     from repro_torch.analysis import roofline as rl
 
     chips = MESH_CHIPS[mesh_kind]
+    sharded = cell.get("sharded", {}).get(mesh_kind)
+    if sharded is not None:
+        if "total" in sharded and terms is cell.get("total"):
+            terms = sharded["total"]     # the cell's total on that mesh
+        return _sharded_record(arch_id, shape, mesh_kind, cell, sharded,
+                               terms, device, overrides)
     scale = _mesh_scale(cell, mesh_kind)
     dev_terms = _per_device({k: terms[k] for k in (
         "flops", "transcendentals", "flops_by_class", "bytes",
@@ -456,6 +597,55 @@ def mesh_record(arch_id: str, shape: str, mesh_kind: str,
             counted_on=counted_on,
             **({"superseded_by": cell["superseded_by"]}
                if "superseded_by" in cell else {}),
+            device=device,
+            overrides={k: str(v) for k, v in (overrides or {}).items()},
+        )}
+
+
+def _sharded_record(arch_id: str, shape: str, mesh_kind: str,
+                    cell: Dict[str, Any], sharded: Dict[str, Any],
+                    terms: Dict[str, Any], device: Dict[str, Any],
+                    overrides=None) -> Dict[str, Any]:
+    """:func:`mesh_record` of a cell counted as a sharded program on
+    ``mesh_kind`` (``_sharded_count``): ``terms`` are rank 0's own (the
+    sharded total, or one of its probes); a failed count gives a record
+    with ``ok: false`` and the reason."""
+    from repro_torch.analysis import roofline as rl
+
+    chips = MESH_CHIPS[mesh_kind]
+    if "error" in sharded:
+        return _failed(arch_id, shape, mesh_kind, sharded["error"],
+                       n_chips=chips, counted_on="meta",
+                       note=f"the sharded count on {chips} ranks failed")
+    cost = dict(flops=terms["flops"], bytes_accessed=terms["bytes"])
+    roof = rl.from_cell({"flops": cost["flops"],
+                         "bytes accessed": cost["bytes_accessed"]},
+                        terms["collectives"], cell["model_flops"], chips)
+    clock = _clock(sharded["probes"][0])
+    note = "; ".join(x for x in [
+        cell["build_note"], f"a sharded program on {chips} ranks (DTensor, fake process "
+        f"group), counted on rank 0 on meta", sharded["note"],
+        "collectives: rank 0's, by their output bytes (hlo.py's "
+        "convention); the collective term at LINK_BW, the NVLink rate "
+        "inside one 8-card node, also where the mesh spans nodes"] if x)
+    return {
+        **dict(arch=arch_id, shape=shape, mesh=mesh_kind, n_chips=chips,
+               ok=True),
+        clock: sum(p[clock] for p in sharded["probes"]),
+        **dict(
+            memory=dict(terms["memory"]), cost=cost,
+            transcendentals=terms["transcendentals"],
+            flops_by_class=dict(terms["flops_by_class"]),
+            collectives=dict(terms["collectives"]),
+            collective_calls=dict(terms.get("collective_calls", {})),
+            transfer_bytes=terms["transfer_bytes"],
+            roofline=roof.report(),
+            kernels=terms["kernels"],
+            note=note,
+            full_point=sharded["full_point"],
+            probes=[{"tag": p["tag"], "point": p["point"], clock: p[clock]}
+                    for p in sharded["probes"]],
+            counted_on="meta", sharded=True,
             device=device,
             overrides={k: str(v) for k, v in (overrides or {}).items()},
         )}
@@ -522,14 +712,17 @@ def _run_one(args, passthrough: List[str], arch_id: str, shape: str
     try:
         r = subprocess.run(cmd, capture_output=True, text=True,
                            timeout=args.timeout)
-        err = None if r.returncode == 0 else r.stderr[-4000:]
+        err = (None if r.returncode in (0, SHARDED_FAILED)
+               else r.stderr[-4000:])
     except subprocess.TimeoutExpired:
         err = "timeout"
     if err is None:
-        print(f"[cell] {arch_id} × {shape}: ok" + "".join(
-            f"\n  {line}" for line in r.stdout.splitlines()
-            if line.startswith("[card]")), flush=True)
-        return True
+        ok = r.returncode == 0
+        print(f"[cell] {arch_id} × {shape}: "
+              f"{'ok' if ok else 'a sharded count FAILED'}" + "".join(
+                  f"\n  {line}" for line in r.stdout.splitlines()
+                  if line.startswith("[")), flush=True)
+        return ok
     for m, fn in zip(MESH_CHIPS, fns):
         _write(fn, _failed(arch_id, shape, m, err))
     print(f"[cell] {arch_id} × {shape}: FAILED: "
@@ -631,8 +824,20 @@ def main() -> None:
         sys.exit(1)
     info = device_info("meta" if cell["counted_on"] == "meta"
                        else args.device)
+    failed = []
     for m in MESH_CHIPS:
-        for p in cell["probes"]:
+        sharded = cell.get("sharded", {}).get(m)
+        if sharded is not None and "error" in sharded:
+            failed.append(m)
+            rec = mesh_record(args.arch, args.shape, m, cell, cell["total"],
+                              info, cli_ov)
+            _write(_path(args.out, args.arch, args.shape, m, args.tag), rec)
+            print(f"[{m}] {args.arch} × {args.shape}: FAILED: "
+                  f"{sharded['error'].strip().splitlines()[-1]}",
+                  flush=True)
+            continue
+        for p in (cell["probes"] if sharded is None
+                  else sharded["probes"]):
             rec = mesh_record(args.arch, args.shape, m, cell, p, info,
                               cli_ov)
             clock = _clock(p)
@@ -643,15 +848,17 @@ def main() -> None:
                          p["tag"]), rec)
         if args.probe:
             continue
-        rec = mesh_record(args.arch, args.shape, m, cell, cell["total"], info,
-                          cli_ov)
+        rec = mesh_record(args.arch, args.shape, m, cell, cell["total"],
+                          info, cli_ov)
         _write(_path(args.out, args.arch, args.shape, m, args.tag), rec)
         print(f"[{m}] {args.arch} × {args.shape}: {summary_line(rec)}",
               flush=True)
-    if not args.probe:
-        print(json.dumps(mesh_record(
-            args.arch, args.shape, args.mesh, cell, cell["total"], info,
-            cli_ov)["roofline"], indent=1))
+        if m == args.mesh and not args.probe:
+            shown = rec["roofline"]
+    if not args.probe and args.mesh not in failed:
+        print(json.dumps(shown, indent=1))
+    if failed:
+        sys.exit(SHARDED_FAILED)
 
 
 if __name__ == "__main__":

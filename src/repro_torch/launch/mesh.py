@@ -24,8 +24,14 @@ and the mesh axis is the ranks' process group.
     type, as :func:`visible_devices` lists them.  One process drives them
     all, a worker thread a device; no process group is involved.
 
-Nothing switches backend or device when something fails.  The reference's
-TPU pod meshes (``make_production_mesh``) have no counterpart.
+  * :func:`make_production_mesh` — the reference's TPU pod meshes, 16 × 16
+    ``(data, model)`` or 2 × 16 × 16 ``(pod, data, model)``, as a
+    ``DeviceMesh`` over an in-process fake process group of 256 or 512
+    ranks (:func:`make_fake_mesh`), the process rank 0: the dry-run's
+    sharded count runs one rank's program on meta tensors, with no card
+    and no peer.
+
+Nothing switches backend or device when something fails.
 """
 
 from __future__ import annotations
@@ -49,6 +55,54 @@ from repro_torch.core import distributed as D
 from repro_torch.core import solvers as S
 
 BACKENDS = ("nccl", "gloo")
+
+#: The reference's production meshes: (shape, axis names), by multi_pod.
+PRODUCTION_MESHES = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The single-pod (256 ranks) or multi-pod (512 ranks) mesh of the
+    reference, over a fake process group (:func:`make_fake_mesh`)."""
+    shape, axes = PRODUCTION_MESHES[multi_pod]
+    return make_fake_mesh(shape, axes)
+
+
+def make_fake_mesh(shape: Sequence[int], axes: Sequence[str]):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over torch's in-process
+    fake process group (``torch.testing._internal.distributed.fake_pg``),
+    of as many ranks as the mesh has, this process rank 0.  Its
+    collectives return at once without moving data: a program run on it
+    with meta tensors is one rank's count.  One world a process: a world
+    of another size replaces the one before, which any mesh on it must
+    outlive no longer; a real process group already joined is not
+    replaced (ValueError)."""
+    import math
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = math.prod(shape)
+    if dist.is_initialized() and dist.get_backend() != "fake":
+        raise ValueError(f"this process is a rank of a "
+                         f"{dist.get_backend()} group; a fake world "
+                         f"would replace it")
+    if dist.is_initialized() and dist.get_world_size() != world:
+        dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", rank=0, world_size=world,
+                                store=FakeStore())
+    return init_device_mesh("cpu", tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def release_fake_world() -> None:
+    """End this process's fake world (:func:`make_fake_mesh`), if any, so
+    that it may join a real process group later."""
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        dist.destroy_process_group()
 
 
 def pe_device(rank: int, device: torch.device | str | None = None

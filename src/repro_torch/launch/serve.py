@@ -235,7 +235,8 @@ def serve_lm(args: argparse.Namespace) -> dict:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = TM.Transformer(cfg, MC.init_params(TM.param_specs(cfg), gen, dev))
     B, S = args.batch, args.tokens + 8
-    (k_shape, k_dtype), (v_shape, v_dtype) = TM.make_kv_cache_specs(cfg, B, S)
+    ((k_shape, k_dtype), (v_shape, v_dtype)), _ = TM.make_kv_cache_specs(
+        cfg, B, S)
     kc = torch.zeros(k_shape, dtype=k_dtype, device=dev)
     vc = torch.zeros(v_shape, dtype=v_dtype, device=dev)
     tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)

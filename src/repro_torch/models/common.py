@@ -10,8 +10,19 @@ as meta tensors), and
 
 The numerics follow the reference line for line, casts included: norms,
 RoPE and attention compute in float32 and cast back to the input's type.
-The reference's GSPMD partition specs and sharding hints have no meaning
-on one card and are not carried.
+
+Sharding (the dry-run's sharded count): each :class:`ParamSpec` carries
+the reference's partition spec (``pspec``: one entry a dim, an axis name,
+a tuple of names or ``None``), :func:`sanitize_pspec` drops the axes a dim
+does not divide, :func:`param_shardings` gives each leaf's DTensor
+placements on a ``DeviceMesh`` and :func:`abstract_dtensor` lays a leaf
+out as a DTensor whose local shard is a meta tensor.  :func:`shard_hint`
+is the reference's activation constraint: it redistributes a DTensor to
+the sanitised spec once :func:`set_hint_mesh` has installed a mesh, and
+is the identity otherwise (every run on one device).  The few ops whose
+DTensor operands DTensor's own rules do not serve (:func:`einsum`,
+:func:`flash_attention`, the loss's gold logit, :func:`lookup`, ...) hand
+them to ``analysis.sharded``.
 
 The training half: :func:`chunked_attention` (the tiled online-softmax
 oracle), :func:`flash_attention` (the same tiling under a
@@ -36,13 +47,33 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import is_dtensor
+
+
+#: A partition spec: one entry a dim (an axis name, a tuple of axis names
+#: or None); missing trailing entries are None.  ``()`` is replicated,
+#: the reference's ``P()``.
+PSpec = Tuple[Any, ...]
+
+
+def canonical_pspec(pspec: PSpec) -> PSpec:
+    """``pspec`` as ``jax.sharding.PartitionSpec`` holds it: an entry of
+    one axis is the name itself, one of none is ``None``."""
+    return tuple(
+        (e[0] if len(e) == 1 else None if not e else e)
+        if isinstance(e, tuple) else e for e in pspec)
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.float32
+    pspec: PSpec = ()
     init: str = "normal"   # normal | zeros | ones
     scale: float = 0.02
+
+    def __post_init__(self):
+        object.__setattr__(self, "pspec", canonical_pspec(self.pspec))
 
 
 ParamTree = Dict[str, Any]  # nested dict of ParamSpec / tensors
@@ -94,6 +125,120 @@ def abstract_params(specs: ParamTree) -> ParamTree:
 
 def count_params(specs: ParamTree) -> int:
     return sum(int(math.prod(s.shape)) for _, s in _leaves(specs))
+
+
+def _axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` (or of anything with its
+    ``mesh_dim_names`` and ``shape``)."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def sanitize_pspec(shape: Tuple[int, ...], pspec: PSpec, mesh) -> PSpec:
+    """Drop mesh axes from dims they don't divide (jit in_shardings require
+    exact divisibility, unlike with_sharding_constraint)."""
+    sizes = _axis_sizes(mesh)
+    entries = list(pspec) + [None] * (len(shape) - len(pspec))
+    out = []
+    for dim, ent in zip(shape, entries[: len(shape)]):
+        if ent is None:
+            out.append(None)
+            continue
+        axes = ent if isinstance(ent, tuple) else (ent,)
+        axes = tuple(a for a in axes if a in sizes)
+        # greedily keep the prefix of axes whose product divides the dim
+        kept = []
+        prod = 1
+        for a in axes:
+            if dim % (prod * sizes[a]) == 0:
+                kept.append(a)
+                prod *= sizes[a]
+        if not kept:
+            out.append(None)
+        elif len(kept) == 1:
+            out.append(kept[0])
+        else:
+            out.append(tuple(kept))
+    return tuple(out)
+
+
+def placements(shape: Tuple[int, ...], pspec: PSpec, mesh) -> tuple:
+    """DTensor placements on ``mesh`` of a tensor of ``shape`` laid out by
+    ``pspec`` (sanitised): ``Shard(d)`` on every mesh dim whose axis names
+    tensor dim d, ``Replicate()`` on the others.
+
+    A dim sharded over several axes is cut in mesh-dim order, where the
+    spec orders them as written: DLRM's tables, ``("model", "data")`` on
+    rows, put rows model-major, DTensor's ``[Shard(0), Shard(0)]``
+    data-major.  Each device holds a block of the same size and bytes
+    either way, which is all a count reads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, ent in enumerate(sanitize_pspec(tuple(shape), pspec, mesh)):
+        for a in (() if ent is None else ent if isinstance(ent, tuple)
+                  else (ent,)):
+            out[names.index(a)] = Shard(d)
+    return tuple(out)
+
+
+def param_shardings(specs: ParamTree, mesh) -> ParamTree:
+    """Each leaf's DTensor placements on ``mesh`` (:func:`placements` of
+    its sanitised spec), in the specs' tree."""
+    def walk(tree: ParamTree) -> ParamTree:
+        return {k: walk(tree[k]) if isinstance(tree[k], dict)
+                else placements(tree[k].shape, tree[k].pspec, mesh)
+                for k in sorted(tree)}
+
+    return walk(specs)
+
+
+def contiguous_strides(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (no tensor made:
+    under a work counter an allocation would count)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(out))
+
+
+def local_shape(shape: Tuple[int, ...], places, mesh) -> Tuple[int, ...]:
+    """One device's shard of ``shape`` under ``places`` (every sharded dim
+    divides evenly: the placements come from a sanitised spec)."""
+    out = list(shape)
+    for m, p in enumerate(places):
+        if p.is_shard():
+            out[p.dim] //= mesh.size(m)
+    return tuple(out)
+
+
+def abstract_dtensor(shape: Tuple[int, ...], dtype: torch.dtype, places,
+                     mesh) -> torch.Tensor:
+    """A DTensor of global ``shape`` laid out by ``places`` on ``mesh``
+    whose local shard is a meta tensor: an input of the sharded count,
+    which holds no memory."""
+    from torch.distributed.tensor import DTensor
+
+    local = torch.empty(local_shape(shape, places, mesh), dtype=dtype,
+                        device="meta")
+    return DTensor.from_local(local, mesh, places, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
+def abstract_sharded_params(specs: ParamTree, mesh) -> ParamTree:
+    """``specs`` as DTensors on ``mesh`` laid out by each leaf's spec, the
+    local shards meta tensors (the reference lowers its abstract params
+    with ``param_shardings`` as ``in_shardings``)."""
+    def walk(tree: ParamTree) -> ParamTree:
+        return {k: walk(tree[k]) if isinstance(tree[k], dict)
+                else abstract_dtensor(tree[k].shape, tree[k].dtype,
+                                      placements(tree[k].shape,
+                                                 tree[k].pspec, mesh), mesh)
+                for k in sorted(tree)}
+
+    return walk(specs)
 
 
 def register_tree(module: nn.Module, tree: ParamTree, *,
@@ -154,6 +299,132 @@ def layer_slices(stacked: Dict[str, torch.Tensor]
 
 
 # --------------------------------------------------------------------- #
+# activation-sharding hints (DTensor redistributions; no-op without a mesh)
+# --------------------------------------------------------------------- #
+_HINT_MESH = None
+
+
+def set_hint_mesh(mesh) -> None:
+    """Install the mesh used by shard_hint (the sharded count)."""
+    global _HINT_MESH
+    _HINT_MESH = mesh
+
+
+def hint_axis_size(name: str):
+    """Size of a mesh axis under the installed hint mesh (None if no mesh)."""
+    if _HINT_MESH is None:
+        return None
+    return _axis_sizes(_HINT_MESH).get(name)
+
+
+def shard_hint(x: torch.Tensor, *spec) -> torch.Tensor:
+    """The reference's with_sharding_constraint with 'fsdp' placeholder
+    resolution and divisibility sanitation: a DTensor is redistributed to
+    the spec's placements (its gradient back to the input's); identity
+    when no mesh is installed or ``x`` is a plain tensor."""
+    if _HINT_MESH is None or not is_dtensor(x):
+        return x
+    names = tuple(_HINT_MESH.mesh_dim_names)
+    fsdp = _fsdp_axes(_HINT_MESH)
+    resolved = []
+    for ent in spec:
+        if ent == "fsdp":
+            resolved.append(fsdp)
+        elif ent == "all":
+            resolved.append(names)
+        else:
+            resolved.append(ent)
+    places = placements(tuple(x.shape), tuple(resolved), _HINT_MESH)
+    if tuple(x.placements) == places:
+        return x
+    return x.redistribute(_HINT_MESH, places)
+
+
+def _fsdp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+
+
+def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
+    """A DTensor weight gathered over the FSDP axes (its other placements
+    kept): the schedule GSPMD compiles the reference's 2-D-sharded
+    weights to (ZeRO-3 / FSDP: a layer's weights all-gathered where the
+    layer runs, their gradients reduce-scattered back).  DTensor's own
+    propagation would shard the contraction instead and all-reduce
+    activation-sized partial sums.  Identity without a hint mesh and on
+    plain tensors."""
+    if _HINT_MESH is None or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    fsdp = {i for i, a in enumerate(_HINT_MESH.mesh_dim_names)
+            if a in _fsdp_axes(_HINT_MESH)}
+    if not any(w.placements[i].is_shard() for i in fsdp):
+        return w
+    return w.redistribute(_HINT_MESH, tuple(
+        Replicate() if i in fsdp else p for i, p in enumerate(w.placements)))
+
+
+def sharded_rules():
+    """``analysis.sharded``, the DTensor rules of the sharded count, to
+    which the functions below hand DTensor operands (loaded then, so no
+    run on one device imports it)."""
+    from repro_torch.analysis import sharded
+
+    return sharded
+
+
+# the model's ops whose DTensor operands take a rule of ``analysis.sharded``
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two operands."""
+    if is_dtensor(a) or is_dtensor(b):
+        return sharded_rules().einsum(eq, a, b)
+    return torch.einsum(eq, a, b)
+
+
+def lookup(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``table[rows]`` (rows in range)."""
+    if is_dtensor(table):
+        return sharded_rules().lookup(table, rows)
+    return table[rows]
+
+
+def split_heads(x: torch.Tensor, heads: int, d_head: int) -> torch.Tensor:
+    """``x`` [..., heads · d_head] as [..., heads, d_head]."""
+    if is_dtensor(x):
+        return sharded_rules().split_heads(x, heads, d_head)
+    return x.reshape(*x.shape[:-1], heads, d_head)
+
+
+def take_pairs(z: torch.Tensor, i: torch.Tensor,
+               j: torch.Tensor) -> torch.Tensor:
+    """``z[:, i, j]``."""
+    if is_dtensor(z):
+        return sharded_rules().take_pairs(z, i, j)
+    return z[:, i, j]
+
+
+def laid_out_as(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` laid out as ``ref`` where both are DTensors (else as it is)."""
+    if is_dtensor(x) and is_dtensor(ref):
+        return sharded_rules().laid_out_as(x, ref)
+    return x
+
+
+def write_rows(cache: torch.Tensor, new: torch.Tensor, pos0: int) -> None:
+    """``cache[:, pos0:pos0 + T] = new`` (T = ``new.shape[1]``), in place."""
+    if is_dtensor(cache):
+        sharded_rules().write_rows(cache, new, pos0)
+    else:
+        cache[:, pos0:pos0 + new.shape[1]] = new
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """``x`` whole on every device, as a plain tensor (a DTensor gathered,
+    no gradient through it)."""
+    return sharded_rules().replicated(x) if is_dtensor(x) else x
+
+
+# --------------------------------------------------------------------- #
 # numerics
 # --------------------------------------------------------------------- #
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -201,10 +472,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = torch.einsum("btd,df->btf", x, w_gate.to(x.dtype))
-    u = torch.einsum("btd,df->btf", x, w_up.to(x.dtype))
+    g = einsum("btd,df->btf", x, w_gate.to(x.dtype))
+    u = einsum("btd,df->btf", x, w_up.to(x.dtype))
     h = F.silu(g.float()).to(x.dtype) * u
-    return torch.einsum("btf,fd->btd", h, w_down.to(x.dtype))
+    return einsum("btf,fd->btd", h, w_down.to(x.dtype))
 
 
 # --------------------------------------------------------------------- #
@@ -229,14 +500,14 @@ def decode_attention(
     rep = H // Hkv
     scale = 1.0 / math.sqrt(Dh)
     qh = (q.reshape(B, Hkv, rep, Dh) * scale).float()
-    s = torch.einsum("bgrd,bsgd->bgrs", qh, k_cache.float())
+    s = einsum("bgrd,bsgd->bgrs", qh, k_cache.float())
     pos = torch.arange(S, device=q.device)
     mask = pos[None, :] < cache_len
     if window is not None:
         mask &= pos[None, :] >= cache_len - window
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bgrs,bsgd->bgrd", p, v_cache.float())
+    out = einsum("bgrs,bsgd->bgrd", p, v_cache.float())
     return out.reshape(B, 1, H, Dh).to(q.dtype)
 
 
@@ -318,6 +589,9 @@ def flash_attention(q, k, v, window: Optional[int] = None, *,
     residuals instead of the O(T²/chunk) ones autograd through the tiled
     forward would keep.  ``window``: an int, or None (= 2**30)."""
     window = 2**30 if window is None else int(window)
+    if is_dtensor(q):
+        return sharded_rules().flash_attention(q, k, v, window, causal,
+                                               chunk, q_offset)
     return _Flash.apply(q, k, v, window, causal, chunk, q_offset)
 
 
@@ -453,13 +727,17 @@ def _chunk_loss(hx: torch.Tensor, lx: torch.Tensor,
     """One chunk's summed cross-entropy against the tied head.  The gold
     logit is ``take_along_axis``'s: a label in [-V, -1] wraps, one outside
     [-V, V) gives NaN."""
-    logits = torch.einsum("btd,vd->btv", hx.float(), emb.float())
-    lse = torch.logsumexp(logits, dim=-1)
+    logits = einsum("btd,vd->btv", hx.float(), emb.float())
     V = logits.shape[-1]
     lab = lx.long()
     ok = (lab >= -V) & (lab < V)
     idx = torch.where(lab < 0, lab + V, lab).clamp_(0, V - 1)
-    gold = torch.gather(logits, -1, idx[..., None]).squeeze(-1)
+    if is_dtensor(logits):
+        rules = sharded_rules()
+        lse, gold = rules.logsumexp(logits), rules.take(logits, idx)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, idx[..., None]).squeeze(-1)
     gold = torch.where(ok, gold, float("nan"))
     return (lse - gold).sum()
 

@@ -19,9 +19,12 @@ reference's tree paths (``tables.t0``, ``bot_w0``, ``top_b4``);
 in place of the parameter tree.  Built with ``trainable=True`` its
 weights take gradients: ``loss_fn`` runs under autograd, the tables'
 gradients through the ``embedding_bag`` op's backward (the backward
-kernel on CUDA tensors, one launch a table a step).  Tables are not row-sharded: one card
-holds them (the reference's partition specs have no meaning here), but
-their rows are padded as the reference pads them.
+kernel on CUDA tensors, one launch a table a step).  The weights carry
+the reference's partition specs: tables of 4,096 rows or more row-sharded
+over ``("model",) + fsdp`` (their rows padded to a multiple of 512, as
+the reference pads them), the rest and the MLPs replicated.  They shape
+the dry-run's sharded count (DTensors; the lookups through the op's
+sharding rule, ``embedding_bag.ops``); one card holds the tables whole.
 """
 
 from __future__ import annotations
@@ -67,24 +70,28 @@ class DLRMConfig:
         return self.embed_dim + self.n_interactions
 
 
-def param_specs(cfg: DLRMConfig) -> Dict[str, Any]:
+def param_specs(cfg: DLRMConfig, fsdp=("data",)) -> Dict[str, Any]:
     S = ParamSpec
     specs: Dict[str, Any] = {"tables": {}}
     for i, v in enumerate(cfg.vocabs):
-        # the reference pads the tables it row-shards (v >= 4096) to a
-        # multiple of 512 rows; the extra rows are never indexed
+        # row-shard big tables over every mesh axis (10⁸-row tables exceed
+        # one chip's HBM even model-sharded); tiny tables replicate.
+        # Rows pad to a shardable multiple (extra rows are never indexed).
         if v >= 4096:
+            pspec = (("model",) + tuple(fsdp), None)
             v = ((v + 511) // 512) * 512
-        specs["tables"][f"t{i}"] = S((v, cfg.embed_dim), cfg.dtype,
+        else:
+            pspec = (None, None)
+        specs["tables"][f"t{i}"] = S((v, cfg.embed_dim), cfg.dtype, pspec,
                                      scale=1.0 / cfg.embed_dim)
     for j, (a, b) in enumerate(zip(cfg.bot_mlp[:-1], cfg.bot_mlp[1:])):
-        specs[f"bot_w{j}"] = S((a, b), cfg.dtype)
-        specs[f"bot_b{j}"] = S((b,), cfg.dtype, init="zeros")
+        specs[f"bot_w{j}"] = S((a, b), cfg.dtype, (None, None))
+        specs[f"bot_b{j}"] = S((b,), cfg.dtype, (None,), init="zeros")
     # top_mlp entries are all layer widths; input = bottom-out ++ interactions
     dims = (cfg.top_in,) + cfg.top_mlp
     for j, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-        specs[f"top_w{j}"] = S((a, b), cfg.dtype)
-        specs[f"top_b{j}"] = S((b,), cfg.dtype, init="zeros")
+        specs[f"top_w{j}"] = S((a, b), cfg.dtype, (None, None))
+        specs[f"top_b{j}"] = S((b,), cfg.dtype, (None,), init="zeros")
     return specs
 
 
@@ -142,10 +149,10 @@ def forward(params: DLRM, batch: Dict[str, torch.Tensor],
         for i in range(cfg.n_sparse)
     ]
     feats = torch.stack([d] + embs, dim=1)                # [B, F, dim]
-    z = torch.einsum("bfd,bgd->bfg", feats, feats)        # dot interaction
+    z = C.einsum("bfd,bgd->bfg", feats, feats)            # dot interaction
     iu = torch.triu_indices(feats.shape[1], feats.shape[1], offset=1,
                             device=feats.device)
-    inter = z[:, iu[0], iu[1]]                            # [B, F(F-1)/2]
+    inter = C.take_pairs(z, iu[0], iu[1])                 # [B, F(F-1)/2]
     top_in = torch.cat([d, inter], dim=-1)
     logit = _mlp(params, "top", top_in, len(cfg.top_mlp))
     return logit.squeeze(1)

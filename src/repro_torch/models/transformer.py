@@ -91,43 +91,47 @@ class TransformerConfig:
 # --------------------------------------------------------------------- #
 # parameter specs
 # --------------------------------------------------------------------- #
-def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+def param_specs(cfg: TransformerConfig, fsdp=("data",)) -> Dict[str, Any]:
+    """The weights' specs, each with the reference's partition spec over
+    the production mesh (``fsdp``: the axes that shard the weights' FSDP
+    dim, ``("data",)`` or ``("pod", "data")``)."""
     L, D, H, Hkv, dh, F, V = (
         cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
         cfg.d_ff, cfg.vocab,
     )
+    f = tuple(fsdp)
     S = C.ParamSpec
     dt = cfg.dtype
     f32 = torch.float32
     specs: Dict[str, Any] = {
-        "embed": S((V, D), dt),
-        "final_norm": S((D,), f32, init="zeros"),
+        "embed": S((V, D), dt, ("model", f)),
+        "final_norm": S((D,), f32, (None,), init="zeros"),
         "attn": {
-            "norm": S((L, D), f32, init="zeros"),
-            "wq": S((L, D, H * dh), dt),
-            "wk": S((L, D, Hkv * dh), dt),
-            "wv": S((L, D, Hkv * dh), dt),
-            "wo": S((L, H * dh, D), dt),
+            "norm": S((L, D), f32, (None, None), init="zeros"),
+            "wq": S((L, D, H * dh), dt, (None, f, "model")),
+            "wk": S((L, D, Hkv * dh), dt, (None, f, None)),
+            "wv": S((L, D, Hkv * dh), dt, (None, f, None)),
+            "wo": S((L, H * dh, D), dt, (None, "model", f)),
         },
     }
     if cfg.qk_norm:
-        specs["attn"]["q_norm"] = S((L, dh), f32, init="zeros")
-        specs["attn"]["k_norm"] = S((L, dh), f32, init="zeros")
+        specs["attn"]["q_norm"] = S((L, dh), f32, (None, None), init="zeros")
+        specs["attn"]["k_norm"] = S((L, dh), f32, (None, None), init="zeros")
     if cfg.is_moe:
         E = cfg.moe_experts
         specs["ffn"] = {
-            "norm": S((L, D), f32, init="zeros"),
-            "router": S((L, D, E), f32),
-            "w_gate": S((L, E, D, F), dt),
-            "w_up": S((L, E, D, F), dt),
-            "w_down": S((L, E, F, D), dt),
+            "norm": S((L, D), f32, (None, None), init="zeros"),
+            "router": S((L, D, E), f32, (None, f, None)),
+            "w_gate": S((L, E, D, F), dt, (None, "model", f, None)),
+            "w_up": S((L, E, D, F), dt, (None, "model", f, None)),
+            "w_down": S((L, E, F, D), dt, (None, "model", None, f)),
         }
     else:
         specs["ffn"] = {
-            "norm": S((L, D), f32, init="zeros"),
-            "w_gate": S((L, D, F), dt),
-            "w_up": S((L, D, F), dt),
-            "w_down": S((L, F, D), dt),
+            "norm": S((L, D), f32, (None, None), init="zeros"),
+            "w_gate": S((L, D, F), dt, (None, f, "model")),
+            "w_up": S((L, D, F), dt, (None, f, "model")),
+            "w_down": S((L, F, D), dt, (None, "model", f)),
         }
     return specs
 
@@ -160,12 +164,12 @@ def _attention(x, lp, cfg: TransformerConfig, layer_idx: int, positions,
     B, T, D = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     h = C.rms_norm(x, lp["norm"])
-    q = torch.einsum("btd,dh->bth", h, lp["wq"].to(h.dtype))
-    k = torch.einsum("btd,dh->bth", h, lp["wk"].to(h.dtype))
-    v = torch.einsum("btd,dh->bth", h, lp["wv"].to(h.dtype))
-    q = q.reshape(B, T, H, dh)
-    k = k.reshape(B, T, Hkv, dh)
-    v = v.reshape(B, T, Hkv, dh)
+    q = C.einsum("btd,dh->bth", h, lp["wq"].to(h.dtype))
+    k = C.einsum("btd,dh->bth", h, lp["wk"].to(h.dtype))
+    v = C.einsum("btd,dh->bth", h, lp["wv"].to(h.dtype))
+    q = C.split_heads(q, H, dh)
+    k = C.split_heads(k, Hkv, dh)
+    v = C.split_heads(v, Hkv, dh)
     if cfg.qk_norm:
         q = C.rms_norm(q, lp["q_norm"])
         k = C.rms_norm(k, lp["k_norm"])
@@ -181,12 +185,16 @@ def _attention(x, lp, cfg: TransformerConfig, layer_idx: int, positions,
         kc, vc = kv_cache
         # lax.dynamic_update_slice clamps its start so the update fits
         pos0 = min(max(cache_len, 0), kc.shape[1] - T)
-        kc[:, pos0:pos0 + T] = k
-        vc[:, pos0:pos0 + T] = v
+        # sharded: the new rows laid out as the cache (the reference's
+        # cache in_shardings), the query too
+        q, k, v = (C.laid_out_as(t, kc) for t in (q, k, v))
+        C.write_rows(kc, k, pos0)
+        C.write_rows(vc, v, pos0)
         o = C.decode_attention(q, kc, vc, cache_len + T, window=window)
+        o = C.shard_hint(o, "fsdp", None, None, None)
         new_cache = (kc, vc)
     o = o.reshape(B, T, H * dh)
-    out = torch.einsum("bth,hd->btd", o, lp["wo"].to(o.dtype))
+    out = C.einsum("bth,hd->btd", o, lp["wo"].to(o.dtype))
     return x + out, new_cache
 
 
@@ -219,14 +227,22 @@ def _moe_ffn(x, lp, cfg: TransformerConfig):
     B, T, D = x.shape
     E, K = cfg.moe_experts, cfg.moe_top_k
     N = B * T
-    h = C.rms_norm(x, lp["norm"])
+    # sharded: the tokens over the fsdp axes alone (the sequence-parallel
+    # residual gathered), the layout of the dispatch's tokens and of the
+    # combine's hints; [B, T] flattened with T sharded is refused (or a
+    # strided shard, by torch's version)
+    h = C.shard_hint(C.rms_norm(x, lp["norm"]), "fsdp", None, None)
     hf = h.reshape(N, D)
-    logits = torch.einsum("nd,de->ne", hf.float(), lp["router"])
+    logits = C.einsum("nd,de->ne", hf.float(), lp["router"])
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k breaks ties toward the lower index; torch.topk does not
     # promise an order among ties (a trained router rarely has exact ones)
     gate, idx = torch.topk(probs, K, dim=-1)          # [N, K], sorted
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    # the routing's integer bookkeeping (the load count, the sort by
+    # expert and the capacity ranks) runs on every device over all the
+    # assignments, as GSPMD partitions a sort along its sharded dim
+    idx = C.replicated(idx)
 
     # aux load-balance loss (Switch-style)
     me = probs.mean(0)
@@ -238,23 +254,46 @@ def _moe_ffn(x, lp, cfg: TransformerConfig):
     NA = N * K
     cap = int(max(1, round(NA / E * cfg.capacity_factor)))
     keep, slot = _dispatch(idx.reshape(NA), E, cap)
-    token_of = torch.arange(NA, device=x.device) // K
-    src = torch.where(keep[:, None], hf[token_of], 0).to(h.dtype)
-    buf = torch.zeros((E * cap + 1, D), dtype=h.dtype, device=x.device)
-    buf = buf.index_add(0, slot, src)[:E * cap].reshape(E, cap, D)
-    g = torch.einsum("ecd,edf->ecf", buf, lp["w_gate"].to(buf.dtype))
-    u = torch.einsum("ecd,edf->ecf", buf, lp["w_up"].to(buf.dtype))
+    if C.is_dtensor(hf):
+        buf = C.sharded_rules().moe_dispatch(hf, keep, slot, E, cap, K)
+    else:
+        token_of = torch.arange(NA, device=x.device) // K
+        src = torch.where(keep[:, None], hf[token_of], 0).to(h.dtype)
+        buf = torch.zeros((E * cap + 1, D), dtype=h.dtype, device=x.device)
+        buf = buf.index_add(0, slot, src)[:E * cap].reshape(E, cap, D)
+    # expert-parallel dispatch buffer: experts over `model`, capacity over
+    # the fsdp axes (the token all-to-all)
+    buf = C.shard_hint(buf, "model", "fsdp", None)
+    # the FSDP schedule on the expert weights: gather the 2-D-sharded
+    # weight shards a layer; when experts don't divide the model axis
+    # (grok: E = 8 < 16) shard F / D over `model` instead
+    ms = C.hint_axis_size("model") or 1
+    spec = ("model", None, None) if E % max(ms, 1) == 0 else (None, None,
+                                                              "model")
+    wg, wu, wd = (C.shard_hint(lp[n], *spec)
+                  for n in ("w_gate", "w_up", "w_down"))
+    g = C.einsum("ecd,edf->ecf", buf, wg.to(buf.dtype))
+    u = C.einsum("ecd,edf->ecf", buf, wu.to(buf.dtype))
     act = torch.nn.functional.silu(g.float()).to(buf.dtype) * u
-    out = torch.einsum("ecf,efd->ecd", act, lp["w_down"].to(buf.dtype))
+    out = C.einsum("ecf,efd->ecd", act, wd.to(buf.dtype))
 
-    out_flat = out.reshape(E * cap, D)
-    y_assign = torch.where(
-        keep[:, None], out_flat[torch.clamp(slot, max=E * cap - 1)], 0,
-    ).to(h.dtype) * gate.reshape(NA)[:, None].to(h.dtype)
+    out = C.shard_hint(out, "model", "fsdp", None)
+    if C.is_dtensor(out):
+        y_assign = C.sharded_rules().moe_combine(out, keep, slot).to(h.dtype)
+    else:
+        y_assign = torch.where(
+            keep[:, None],
+            out.reshape(E * cap, D)[torch.clamp(slot, max=E * cap - 1)], 0,
+        ).to(h.dtype)
+    y_assign = y_assign * gate.reshape(NA)[:, None].to(h.dtype)
+    y_assign = C.shard_hint(y_assign, "fsdp", None)
     # token_of = assignment // K is contiguous: the combine is a reshape
     # and a sum over K, not a scatter
     y = y_assign.reshape(N, K, D).sum(1)
-    return x + y.reshape(B, T, D), aux
+    y = C.shard_hint(y, "fsdp", None)
+    # laid out as the residual once unflattened: its gradient then comes
+    # back to the unflatten with the sequence whole
+    return x + C.shard_hint(y.reshape(B, T, D), "fsdp", "model", None), aux
 
 
 def forward(
@@ -274,13 +313,27 @@ def forward(
     B, T = tokens.shape
     if positions is None:
         positions = torch.arange(T, device=tokens.device).expand(B, T)
-    x = params.embed[table_rows(tokens, cfg.vocab)].to(cfg.dtype)
+    x = C.lookup(C.gather_fsdp(params.embed),
+                 table_rows(tokens, cfg.vocab)).to(cfg.dtype)
     decode = kv_caches is not None
+    # a sharded lookup's masked partial sums are reduced where they are
+    # made (DTensor's mask serves one reduction, and remat would reduce
+    # the block's input again), to the layout the first block asks for
+    x = C.shard_hint(x, "fsdp", None if decode else "model", None)
     if decode:
         kcs, vcs = kv_caches
         cache_len = int(cache_len)
 
     def block(x, i, attn_lp, ffn_lp):
+        # Megatron-style sequence parallelism: the residual stream carried
+        # between blocks (and saved by remat) is sharded over `model`
+        # along the sequence dim
+        if not decode:
+            x = C.shard_hint(x, "fsdp", "model", None)
+        # the FSDP schedule (the expert weights: _moe_ffn's hints)
+        attn_lp = {k: C.gather_fsdp(w) for k, w in attn_lp.items()}
+        ffn_lp = {k: w if cfg.is_moe and k.startswith("w_")
+                  else C.gather_fsdp(w) for k, w in ffn_lp.items()}
         x, _ = _attention(x, attn_lp, cfg, i, positions,
                           kv_cache=(kcs[i], vcs[i]) if decode else None,
                           cache_len=cache_len)
@@ -310,16 +363,23 @@ def loss_fn(params: Transformer, batch: Dict[str, torch.Tensor],
     """Mean next-token cross-entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (``cfg.loss_chunks`` chunks) plus the MoE aux."""
     h, aux, _ = forward(params, batch["tokens"], cfg)
-    xent = C.chunked_xent(h, params.embed, batch["labels"],
+    xent = C.chunked_xent(h, C.gather_fsdp(params.embed), batch["labels"],
                           n_chunks=cfg.loss_chunks)
     return xent + aux
 
 
-def make_kv_cache_specs(cfg: TransformerConfig, batch: int, max_seq: int
-                        ) -> Tuple[Tuple[Tuple[int, ...], torch.dtype], ...]:
-    """(shape, dtype) of the decode KV cache's keys and of its values."""
+def make_kv_cache_specs(cfg: TransformerConfig, batch: int, max_seq: int,
+                        fsdp=("data",), shard_seq: bool = False):
+    """((shape, dtype) of the decode KV cache's keys and of its values,
+    their two partition specs): the batch over ``fsdp`` and d_head over
+    ``model``, or with ``shard_seq`` the sequence over ``model``."""
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
-    return (shape, cfg.dtype), (shape, cfg.dtype)
+    if shard_seq:
+        pspec = (None, None, "model", None, None)
+    else:
+        pspec = C.canonical_pspec((None, tuple(fsdp), None, None,
+                                   "model" if cfg.d_head % 8 == 0 else None))
+    return ((shape, cfg.dtype), (shape, cfg.dtype)), (pspec, pspec)
 
 
 def serve_step(params: Transformer, kv_caches, tokens: torch.Tensor,
@@ -334,7 +394,8 @@ def serve_step(params: Transformer, kv_caches, tokens: torch.Tensor,
         params, tokens, cfg, positions=positions,
         kv_caches=kv_caches, cache_len=cache_len,
     )
-    logits = torch.einsum("btd,vd->btv", h.float(), params.embed.float())
+    logits = C.einsum("btd,vd->btv", h.float(),
+                          C.gather_fsdp(params.embed).float())
     return logits[:, -1], new_caches
 
 
@@ -343,4 +404,5 @@ def prefill_step(params: Transformer, tokens: torch.Tensor,
     """Inference prefill: the cache-free forward; returns the last
     position's logits [B, V] in float32."""
     h, _, _ = forward(params, tokens, cfg)
-    return torch.einsum("bd,vd->bv", h[:, -1].float(), params.embed.float())
+    return C.einsum("bd,vd->bv", h[:, -1].float(),
+                        C.gather_fsdp(params.embed).float())

@@ -17,6 +17,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
+from repro_torch import is_dtensor
+
 
 def leaves(tree: Any) -> List[torch.Tensor]:
     """The tree's tensors in the reference's flatten order (dict keys
@@ -80,6 +82,14 @@ def adamw_init(params: Any) -> AdamWState:
                       nu=tree_map(zeros, params))
 
 
+def as_placed(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` laid out as ``p`` where both are DTensors (else as it is)."""
+    if (is_dtensor(g) and is_dtensor(p)
+            and tuple(g.placements) != tuple(p.placements)):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 @torch.no_grad()
 def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
@@ -89,6 +99,10 @@ def global_norm(tree: Any) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(grads: Any, state: AdamWState, params: Any,
                  cfg: AdamWConfig) -> Tuple[Any, AdamWState]:
+    flat = leaves(params)
+    if is_dtensor(flat[0]):     # the sharded count: DTensor weights
+        grads = unflatten(params, [as_placed(g, p) for g, p in
+                                   zip(leaves(grads), flat)])
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)

@@ -47,7 +47,12 @@ FREE = frozenset({
     "dynamic-update-slice", "gather", "concatenate", "pad", "copy",
     "reverse", "iota", "custom-call", "after-all", "opt-barrier",
     "bitcast-convert", "partition-id", "replica-id", "rng-bit-generator",
-    "copy-start", "copy-done", "topk"})
+    "copy-start", "copy-done", "topk",
+    # a sharded program's collectives (their bytes: ``repro.analysis.hlo``)
+    "all-gather", "all-gather-start", "all-gather-done", "all-reduce",
+    "all-reduce-start", "all-reduce-done", "reduce-scatter", "all-to-all",
+    "collective-permute", "collective-permute-start",
+    "collective-permute-done"})
 
 _SHAPE = re.compile(r"[a-z]+[0-9]*\[([0-9,]*)\]")
 _HEAD = re.compile(r"^(ENTRY\s+)?%?([\w.\-]+)\s*(?:\(.*\)\s*->\s*.*)?\{$")

@@ -870,7 +870,7 @@ def test_lm_decode_on_cuda_matches_cpu(cuda):
                             torch.Generator().manual_seed(0), "cpu")
     cpu, card = TM.Transformer(cfg, params), TM.Transformer(cfg, params)
     card = card.to(cuda)
-    (shape, dt), _ = TM.make_kv_cache_specs(cfg, 2, 16)
+    ((shape, dt), _), _ = TM.make_kv_cache_specs(cfg, 2, 16)
     gen = torch.Generator().manual_seed(1)
     kc = torch.randn(shape, generator=gen, dtype=dt)
     vc = torch.randn(shape, generator=gen, dtype=dt)

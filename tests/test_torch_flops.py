@@ -298,8 +298,11 @@ def test_record_carries_transcendentals_and_classes():
     for mesh, chips in dryrun.MESH_CHIPS.items():
         rec = dryrun.mesh_record("gemma3-1b", "train_4k", mesh, cell,
                                  cell["total"], dryrun.device_info("meta"))
+        # single and multi: rank 0's count of the sharded program
+        sharded = cell["sharded"].get(mesh)
         assert rec["transcendentals"] == pytest.approx(
-            cell["total"]["transcendentals"] / chips)
+            cell["total"]["transcendentals"] / chips if sharded is None
+            else sharded["total"]["transcendentals"])
         assert sum(rec["flops_by_class"].values()) == pytest.approx(
             rec["cost"]["flops"])
         assert set(rec["flops_by_class"]) == set(count.FLOP_CLASSES)

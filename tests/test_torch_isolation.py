@@ -5,7 +5,8 @@ LM models with the data pipeline, the optimizers, the serving CLIs (every
 serving arch), the training CLI, DLRM's and the GNNs' smoke train steps,
 the dry-run (its work counter, configs, registry, probes and tables),
 gradient compression, the dry-run's abstract count on meta tensors (a GNN,
-DLRM and a prefill cell) and the per-PE path's spawned ranks (the dry-run's
+DLRM and a prefill cell; DLRM's also sharded on the fake production
+meshes) and the per-PE path's spawned ranks (the dry-run's
 sweep-round probe and the hierarchical psum among them) —
 loads neither JAX nor the reference package,
 an entry point without ``device=`` refuses to run when no GPU is visible,
@@ -140,7 +141,7 @@ SCRIPT = textwrap.dedent("""
     lcfg = gemma3_1b.SMOKE
     lm = TM.Transformer(lcfg, MC.init_params(
         TM.param_specs(lcfg), torch.Generator().manual_seed(0), "cpu"))
-    (shape, dt), _ = TM.make_kv_cache_specs(lcfg, 2, 8)
+    ((shape, dt), _), _ = TM.make_kv_cache_specs(lcfg, 2, 8)
     cache = (torch.zeros(shape, dtype=dt), torch.zeros(shape, dtype=dt))
     tok = dp.lm_batch(dp.LMBatchSpec(2, 1, lcfg.vocab), 0)["tokens"]
     with torch.no_grad():
@@ -178,6 +179,10 @@ SCRIPT = textwrap.dedent("""
         ab = dryrun.run_cell(arch, shape, overrides=ov, abstract=True)
         assert ab["counted_on"] == "meta", ab
         assert ab["total"]["kernels"][kernel]["units"] == units, ab
+    rec = dryrun.mesh_record("dlrm-mlperf", "train_batch", "multi", ab,
+                             ab["total"], dryrun.device_info("meta"))
+    assert rec["sharded"] and rec["collectives"], rec
+    assert "sharded program on 512 ranks" in rec["note"], rec
     ab = dryrun.run_cell("gemma3-1b", "prefill_32k", abstract=True,
                          overrides=dict(d_model=32, n_heads=2, d_head=16,
                                         d_ff=64, vocab=64, seq=32, batch=2))

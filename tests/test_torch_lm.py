@@ -251,8 +251,8 @@ def test_serve_step_matches_reference(arch, dtype, short):
     model.load_state_dict(convert.params(tree), strict=True)
     B, S = 3, START + STEPS - short
     rng = np.random.default_rng(6)
-    (shape, _), _ = TT.make_kv_cache_specs(cfg_t, B, S)
-    assert TT.make_kv_cache_specs(cfg_t, B, S)[0][1] == tdt
+    ((shape, _), _), _ = TT.make_kv_cache_specs(cfg_t, B, S)
+    assert TT.make_kv_cache_specs(cfg_t, B, S)[0][0][1] == tdt
     jk, tk = _pair(rng, shape, dtype)
     jv, tv = _pair(rng, shape, dtype)
     tk, tv = tk.clone(), tv.clone()
@@ -304,7 +304,7 @@ def test_training_half_raises():
     moe = dataclasses.replace(cfg, moe_experts=4, moe_top_k=2)
     model = TT.Transformer(moe, MC.init_params(
         TT.param_specs(moe), torch.Generator().manual_seed(0), "cpu"))
-    (shape, dt), _ = TT.make_kv_cache_specs(moe, 1, 8)
+    ((shape, dt), _), _ = TT.make_kv_cache_specs(moe, 1, 8)
     cache = (torch.zeros(shape, dtype=dt), torch.zeros(shape, dtype=dt))
     with torch.no_grad():
         logits, _ = TT.serve_step(model, cache, tokens[:, :1], 0, moe)
@@ -328,7 +328,7 @@ def test_out_of_range_tokens_read_the_reference_rows(arch):
     V = cfg_t.vocab
     tok = np.array([[V], [V + 3], [-1], [-V], [-V - 1]], np.int32)
     same = np.array([[V - 1], [V - 1], [V - 1], [0], [0]], np.int32)
-    (shape, _), _ = TT.make_kv_cache_specs(cfg_t, 5, 6)
+    ((shape, _), _), _ = TT.make_kv_cache_specs(cfg_t, 5, 6)
     jz = jnp.zeros(shape, jnp.float32)
     want, _ = JT.serve_step(tree, (jz, jz), jnp.asarray(tok), jnp.int32(0),
                             cfg_j)
