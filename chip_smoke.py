@@ -230,8 +230,10 @@ continues):
                FLOPs, fewer bytes and no ``select_backward`` with the
                layers cut by ``unbind``, or it fails); the
                ``DRYRUN_SHARDED`` cells (qwen3-moe ``train_4k`` at L 2 on
-               ``single``, DLRM ``train_batch`` on ``multi``) as sharded
-               programs on the fake production meshes, each beside its
+               ``single``, DLRM ``train_batch`` on ``multi``, equiformer
+               ``molecule`` on ``single``: its hints, gathers, partial
+               sums and max) as sharded programs on the fake production
+               meshes, each beside its
                even split (argument bytes, collectives by kind,
                t_collective_s, bottleneck, host_s; a failed sharded count
                fails);
@@ -344,7 +346,8 @@ STACKED_CELL = ("qwen3-moe-235b-a22b", "train_4k")
 #: fake process group on meta DTensors), each beside its even split.
 DRYRUN_SHARDED = (("qwen3-moe-235b-a22b", "train_4k", dict(n_layers=2),
                    "single"),
-                  ("dlrm-mlperf", "train_batch", {}, "multi"))
+                  ("dlrm-mlperf", "train_batch", {}, "multi"),
+                  ("equiformer-v2", "molecule", {}, "single"))
 
 #: Phase 14's two-shard and ``--descent auto`` runs serve the first this
 #: many requests of the 192-request stream (its other runs, the whole

@@ -497,9 +497,13 @@ class WorkCounter(TorchDispatchMode):
     report to the innermost active counter.  ``tally``, where given,
     counts the storages the run's ops create (:class:`StorageTally`)."""
 
-    def __init__(self, tally: Optional[StorageTally] = None):
+    def __init__(self, tally: Optional[StorageTally] = None,
+                 track_reads: bool = False):
         super().__init__()
         self.tally = tally
+        #: with ``track_reads``: the storages the run's ops read (a
+        #: DTensor's through its local shard), by ``(device, cdata)``
+        self.read: Optional[set] = set() if track_reads else None
         self.flops = 0
         self.transcendentals = 0
         self.flops_by_class: Dict[str, int] = dict.fromkeys(FLOP_CLASSES, 0)
@@ -562,6 +566,10 @@ class WorkCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.read is not None and not any(
+                t.__name__ == "DTensor" for t in types):
+            self.read.update((t.device, t.untyped_storage()._cdata)
+                             for t in _tensors((args, kwargs)))
         if self._hidden:
             return func(*args, **kwargs)
         if any(t.__name__ == "DTensor" for t in types):
@@ -621,15 +629,19 @@ class WorkCounter(TorchDispatchMode):
                              sorted(self.kernels.items())})
 
 
-def storage_bytes(tree, device_type: Optional[str] = None) -> int:
+def storage_bytes(tree, device_type: Optional[str] = None,
+                  only: Optional[set] = None) -> int:
     """Bytes of the distinct storages of the tensors in ``tree`` (those on
-    ``device_type`` where it is given)."""
+    ``device_type`` where it is given, and in ``only``, a set of
+    ``(device, cdata)`` keys, where it is given)."""
     seen = {}
     for t in _tensors(tree):
         if device_type is not None and t.device.type != device_type:
             continue
         s = t.untyped_storage()
-        seen[(t.device, s._cdata)] = s.nbytes()
+        key = (t.device, s._cdata)
+        if only is None or key in only:
+            seen[key] = s.nbytes()
     return sum(seen.values())
 
 
@@ -639,7 +651,8 @@ def _sync(device: torch.device) -> None:
 
 
 def measure(fn: Callable, inputs: tuple, device: torch.device,
-            tally: bool = False) -> Tuple[Any, Dict[str, Any]]:
+            tally: bool = False,
+            read_only: bool = False) -> Tuple[Any, Dict[str, Any]]:
     """One counted run of ``fn(*inputs)`` on ``device``: its outputs, and
     a record of the counter's totals, the run's time and ``memory``:
     ``argument_bytes`` (the inputs' storages on the device: parameters,
@@ -653,7 +666,12 @@ def measure(fn: Callable, inputs: tuple, device: torch.device,
     in ``run_s``).  On meta (the abstract count), always tallied:
     ``host_s`` (the host clock: no device runs), ``temp_bytes`` the
     tally's peak.  On the CPU: ``run_s`` on the host clock,
-    ``temp_bytes`` None."""
+    ``temp_bytes`` None.
+
+    ``read_only``: ``argument_bytes`` counts only the inputs the run
+    reads, as a compiled program's arguments (``jax.jit`` drops the
+    parameters a program never reads: the sharded count, held to the
+    reference's compiled SPMD program, takes it)."""
     device = torch.device(device)
     kind = device.type
     arg_bytes = storage_bytes(inputs, kind)
@@ -669,7 +687,7 @@ def measure(fn: Callable, inputs: tuple, device: torch.device,
         start.record()
     t0 = time.perf_counter()
     try:
-        with WorkCounter(tally) as wc:
+        with WorkCounter(tally, track_reads=read_only) as wc:
             out = fn(*inputs)
     finally:
         if kind == "cuda":
@@ -677,7 +695,8 @@ def measure(fn: Callable, inputs: tuple, device: torch.device,
         if tally is not None:
             tally.close()
     host_s = time.perf_counter() - t0
-    memory = dict(argument_bytes=arg_bytes,
+    memory = dict(argument_bytes=storage_bytes(inputs, kind, wc.read)
+                  if read_only else arg_bytes,
                   output_bytes=storage_bytes(out, kind), temp_bytes=None)
     rec = wc.summary()
     if kind == "cuda":

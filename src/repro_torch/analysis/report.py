@@ -4,7 +4,10 @@ The port of ``repro/analysis/report.py``: the same tables, over the
 records ``launch/dryrun.py`` writes (meshes ``single``, ``multi`` and
 ``card``); the dry-run table's compile column reads ``run_s``, the time of
 the counted runs; ``--kind notes`` lists each record's probes and note
-(or why it failed).
+(or why it failed).  ``--kind same --base OLD`` counts the records equal
+to another run's in every term, listing those that differ;
+``--kind sharded --base OLD`` sets each sharded record beside the other
+run's record of the cell and mesh.
 
     python -m repro_torch.analysis.report --dir artifacts/dryrun_torch
 """
@@ -141,6 +144,73 @@ def abstract_table(records: List[Dict], base: List[Dict] = ()) -> str:
     return "\n".join(rows)
 
 
+#: The terms two runs' records of a cell must agree in to count as the
+#: same count (times and notes aside).
+TERMS = ("flops_by_class", "transcendentals", "cost", "memory",
+         "collectives", "kernels")
+
+
+def _by_cell(records: List[Dict]) -> Dict:
+    return {(r["arch"], r["shape"], r["mesh"]): r for r in records}
+
+
+def same_table(records: List[Dict], base: List[Dict]) -> str:
+    """Each record against the ``base`` run's record of the same cell and
+    mesh in :data:`TERMS`: how many are equal, and each that is not (the
+    terms that differ), is new or failed."""
+    old = _by_cell(base)
+    equal, rows = 0, ["| arch | shape | mesh | differs in |", "|---|---|---|---|"]
+    for key, r in sorted(_by_cell(records).items()):
+        b = old.get(key)
+        if b is None or not (r.get("ok") and b.get("ok")):
+            why = "new" if b is None else "failed"
+            rows.append(f"| {' | '.join(key)} | {why} |")
+            continue
+        diff = [t for t in TERMS if r.get(t) != b.get(t)]
+        if diff:
+            rows.append(f"| {' | '.join(key)} | {', '.join(diff)} |")
+        else:
+            equal += 1
+    return f"{equal} of {len(records)} records equal the base's\n" + \
+        "\n".join(rows)
+
+
+def sharded_table(records: List[Dict], base: List[Dict]) -> str:
+    """The sharded records (``single`` / ``multi``), per device, against
+    the ``base`` run's record of the same cell and mesh (its even split
+    where the base did not shard the cell): argument GB (the base's),
+    FLOPs and bytes as × the base's, collective bytes, t_collective,
+    t_memory, the bottleneck, temp GB and host seconds."""
+    old = _by_cell(base)
+    rows = ["| arch | shape | mesh | args B (base) | flops × | bytes × | "
+            "coll bytes | t_coll s | t_mem s | bound (base) | temp GB | "
+            "host_s |", "|" + "---|" * 12]
+    for key, r in sorted(_by_cell(records).items()):
+        if not r.get("sharded"):
+            continue
+        if not r.get("ok"):
+            rows.append(f"| {' | '.join(key)} | FAILED |")
+            continue
+        b = old.get(key)
+        rf, m = r["roofline"], r["memory"]
+        if b is not None and b.get("ok"):
+            base_args = f"{b['memory']['argument_bytes']:.3e}"
+            fx = f"{r['cost']['flops'] / b['cost']['flops']:.3f}"
+            ratio = r["cost"]["bytes_accessed"] / b["cost"]["bytes_accessed"]
+            bx = f"{ratio:.3f}"
+            bb = b["roofline"]["bottleneck"][:4]
+        else:
+            base_args, fx, bx, bb = "n/a", "n/a", "n/a", "n/a"
+        rows.append(
+            f"| {' | '.join(key)} | {m['argument_bytes']:.3e} "
+            f"({base_args}) | {fx} | {bx} "
+            f"| {sum(r['collectives'].values()):.3e} "
+            f"| {rf['t_collective_s']:.3e} | {rf['t_memory_s']:.3e} "
+            f"| {rf['bottleneck'][:4]} ({bb}) | {_gb(m['temp_bytes'])} "
+            f"| {_seconds(r):.1f} |")
+    return "\n".join(rows)
+
+
 def notes_table(records: List[Dict]) -> str:
     """Each record's probes and note, or the reason it failed (the last
     line of its error)."""
@@ -164,16 +234,26 @@ def main() -> None:
     ap.add_argument("--dir", default="artifacts/dryrun_torch")
     ap.add_argument("--tag", default="")
     ap.add_argument("--kind", default="roofline",
-                    choices=("roofline", "dryrun", "notes", "abstract"))
+                    choices=("roofline", "dryrun", "notes", "abstract",
+                             "same", "sharded"))
     ap.add_argument("--base", action="append", default=[],
                     help="--kind abstract: another run's records (a later "
                          "--base wins), to give each cell's FLOPs, bytes, "
                          "t_bound and roofline fraction as a ratio to "
-                         "theirs")
+                         "theirs; --kind same: the run each record must "
+                         "equal in its terms; --kind sharded: the run whose "
+                         "records of the same mesh (an even split where it "
+                         "did not shard the cell) each sharded record is "
+                         "set beside")
     args = ap.parse_args()
     recs = load(args.dir, args.tag)
+    base = [r for d in args.base for r in load(d)]
     if args.kind == "abstract":
-        print(abstract_table(recs, [r for d in args.base for r in load(d)]))
+        print(abstract_table(recs, base))
+        return
+    if args.kind in ("same", "sharded"):
+        print(dict(same=same_table, sharded=sharded_table)[args.kind](
+            recs, base))
         return
     print(dict(roofline=roofline_table, dryrun=dryrun_table,
                notes=notes_table)[args.kind](recs))

@@ -15,13 +15,14 @@ through ``overrides``.
 
 The reference's shardings (:func:`fsdp_axes_for`, :func:`sharding_tree`,
 :func:`opt_shardings`, :func:`ns`) are DTensor placements on a
-``DeviceMesh`` here.  ``make_inputs("meta", seed, mesh)`` of an LM or
-DLRM cell lays its inputs out on ``mesh`` as the reference's
-``in_shardings`` do (the weights by their specs, the optimizer state as
-the weights, the batch over the FSDP axes, the decode cache by
+``DeviceMesh`` here.  ``make_inputs("meta", seed, mesh)`` lays a cell's
+inputs out on ``mesh`` as the reference's ``in_shardings`` do (the
+weights by their specs, the optimizer state as the weights, the batch
+over the FSDP axes, the decode cache by
 ``transformer.make_kv_cache_specs``, retrieval's candidates over the FSDP
-axes): DTensors whose local shards are meta tensors, one rank's inputs
-of the dry-run's sharded count.
+axes, a GNN's edges over fsdp + ``model``): DTensors whose local shards
+are meta tensors, one rank's inputs of the dry-run's sharded count (a
+GNN cell's also on ``"cpu"``: each rank's blocks).
 
 ``make_inputs(device, seed)`` makes a cell's inputs.  The index arrays
 whose data sets work that the host packs or a kernel formula counts (the
@@ -177,10 +178,14 @@ def ns(mesh, *spec, shape=None) -> tuple:
 
 
 def sharded(x: torch.Tensor, mesh, *spec) -> torch.Tensor:
-    """A meta input of ``x``'s shape and dtype as a DTensor on ``mesh``
-    laid out by ``spec`` (sanitised), the local shard meta."""
-    return MC.abstract_dtensor(tuple(x.shape), x.dtype,
-                               ns(mesh, *spec, shape=x.shape), mesh)
+    """An input ``x`` as a DTensor on ``mesh`` laid out by ``spec``
+    (sanitised): a meta ``x`` as a meta shard of its shape and dtype,
+    another as this rank's block of it (every rank makes ``x`` whole from
+    the seed; ``models.common.local_dtensor``)."""
+    places = ns(mesh, *spec, shape=x.shape)
+    if x.device.type == "meta":
+        return MC.abstract_dtensor(tuple(x.shape), x.dtype, places, mesh)
+    return MC.local_dtensor(x, places, mesh)
 
 
 def _generator(device, seed: int
@@ -307,7 +312,19 @@ def gnn_build(module, cfg, shape_name: str,
     """A GNN training cell on a random graph of the shape's sizes, padded
     as the reference's data pipeline pads (N and 2·edges to multiples of
     512, padding on the sentinel node N); ``overrides`` may set config
-    fields (the probes' layer count)."""
+    fields (the probes' layer count).
+
+    ``make_inputs(device, seed, mesh)`` lays the same inputs out on
+    ``mesh`` as the reference's ``in_shardings``: the weights by their
+    specs (``module.param_specs(cfg, fsdp)``) and the AdamW state as the
+    weights; node arrays (features, labels, mask, ``pos``, ``batch_id``)
+    over the fsdp axes; ``row``, ``col`` and ``triplets`` over fsdp +
+    ``model``; ``energy`` replicated.  On ``"meta"`` they are meta
+    DTensors (the sharded count), on ``"cpu"`` each rank's blocks of the
+    inputs it made whole (the CPU check of the rules).  The host copies
+    (``batch["host"]``) are then this rank's slices of the index arrays,
+    their values global ids, and ``batch["host_whole"]`` the whole
+    arrays they were cut from."""
     meta = GNN_SHAPES[shape_name]
     cfg = _replace(cfg, overrides)
     # data pipeline pads node/edge counts to shardable multiples
@@ -317,7 +334,7 @@ def gnn_build(module, cfg, shape_name: str,
     cfg = dataclasses.replace(cfg, d_feat=d_feat)
     ocfg = opt.AdamWConfig()
 
-    def make_inputs(device, seed: int):
+    def make_inputs(device, seed: int, mesh=None):
         dev, gen = _generator(device, seed)
         rng = np.random.default_rng(seed)
         n, e = meta["n_nodes"], 2 * meta["n_edges"]
@@ -342,13 +359,53 @@ def gnn_build(module, cfg, shape_name: str,
         batch.update({k: v.to(dev) for k, v in host.items()}, host=host)
         params, ostate = _train_inputs(
             _params(module.param_specs(cfg), gen, dev), dev)
-        return params, ostate, batch
+        if mesh is None:
+            return params, ostate, batch
+        return _gnn_on_mesh(module.param_specs(cfg, fsdp_axes_for(mesh)),
+                            params, ostate, batch, mesh)
 
     def train(params, ostate, batch):
         return train_step(params, ostate, batch, cfg, opt.adamw_update, ocfg,
                           model_cls=module.MODEL, loss_fn=module.loss_fn)
 
     return BuildResult(train, make_inputs, flops_fn(cfg, N, E2), cfg=cfg)
+
+
+#: The reference's layout of a GNN batch (``gnn_build``'s ``batch_sh``):
+#: node arrays over the fsdp axes ("fsdp"), edge arrays over fsdp +
+#: ``model`` ("edges"), the rest replicated.
+GNN_BATCH_SPECS = {
+    "node_feat": ("fsdp", None), "labels": ("fsdp",),
+    "label_mask": ("fsdp",), "pos": ("fsdp", None), "batch_id": ("fsdp",),
+    "row": ("edges",), "col": ("edges",), "triplets": ("edges", None),
+    "energy": (None,),
+}
+
+
+def _gnn_on_mesh(specs, params, ostate, batch, mesh):
+    """A GNN cell's inputs (made whole on one device) laid out on
+    ``mesh`` (``gnn_build``'s docstring); the host copies cut to this
+    rank's slices."""
+    f = fsdp_axes_for(mesh)
+    axes = {"fsdp": f, "edges": f + ("model",), None: None}
+
+    def tree(p, s):
+        return {k: tree(p[k], s[k]) if isinstance(p[k], dict)
+                else sharded(p[k], mesh, *s[k].pspec) for k in sorted(p)}
+
+    params = tree(params, specs)
+    ostate = opt.AdamWState(step=sharded(ostate.step, mesh),
+                            mu=tree(ostate.mu, specs),
+                            nu=tree(ostate.nu, specs))
+    out = dict(batch)
+    for k, spec in GNN_BATCH_SPECS.items():
+        if k in batch:
+            out[k] = sharded(batch[k], mesh, *(axes[a] for a in spec))
+    out["host"] = {k: v[MC.block_slices(tuple(v.shape), out[k].placements,
+                                        mesh)]
+                   for k, v in batch["host"].items()}
+    out["host_whole"] = batch["host"]
+    return params, ostate, out
 
 
 def dlrm_build(cfg, shape_name: str,

@@ -208,6 +208,15 @@ work_counters: list = []
 _NO_SCOPE = contextlib.nullcontext()
 
 
+def note_read(t: torch.Tensor) -> None:
+    """``t`` is read for the device program though no op takes it: an
+    index array whose host copy a plan was packed from.  A work counter
+    that tracks the inputs a run reads counts it as read."""
+    for wc in work_counters:
+        if wc.read is not None:
+            wc.read.add((t.device, t.untyped_storage()._cdata))
+
+
 def work_scope(kernel: str, work, *args, **kwargs):
     """The context of one public op call.  While a work counter is active
     it records one unit of ``kernel`` with ``work(*args, **kwargs)`` (the

@@ -20,8 +20,8 @@ L 2, 4 and extrapolated in L, which is exact for uniform layers without a
 backward; gemma3, whose every 6th layer is global, at L 1, 2, 6, combined
 by layer kind (``analysis.extrapolate.affine``).
 
-On the production meshes (``single``, 256 chips; ``multi``, 512) an LM
-or DLRM cell is also counted as a sharded program, as the reference
+On the production meshes (``single``, 256 chips; ``multi``, 512) an LM,
+GNN or DLRM cell is also counted as a sharded program, as the reference
 compiles one SPMD program: ``launch.mesh.make_production_mesh`` makes
 the reference's mesh over an in-process fake process group, this process
 rank 0; the inputs are meta DTensors laid out as the reference's
@@ -29,10 +29,16 @@ rank 0; the inputs are meta DTensors laid out as the reference's
 hints are installed (``models.common.set_hint_mesh``), and the work
 counter counts rank 0's local ops and the collectives DTensor issues
 (``analysis.count``).  LM cells at the reference's layer probes (L 2, 4;
-gemma3 L 1, 2, 6 by layer kind), DLRM in one run.  An op DTensor cannot
-shard raises, and the mesh's record then says ``ok: false`` and why
-(exit code :data:`SHARDED_FAILED`); nothing falls back to the even split.
-GNN cells keep the even split of the unsharded count on those meshes.
+gemma3 L 1, 2, 6 by layer kind), GNN and DLRM cells in one run at full
+shape and depth.  A GNN cell's node arrays lie over the fsdp axes and its
+edges over fsdp + ``model``; its gathers, sums and maxes over edges take
+the rules of ``models/gnn/common.py`` (the halo exchange: node tables
+all-gathered, partial sums reduced onto node rows), each rank's plans
+packed from its own edges.  The argument bytes are those of the inputs
+the program reads, as a compiled program's.  An op DTensor cannot shard
+raises, and the mesh's record then says ``ok: false`` and why (exit code
+:data:`SHARDED_FAILED`); nothing falls back to the even split, which
+serves only the ``--probes`` records.
 
 MWIS cells count one sweep-round of the per-PE path
 (``solvers.sweep_probe_shard_map_fn``) on ``--pes`` gloo ranks over an
@@ -56,9 +62,9 @@ Per cell and mesh (``single`` 256 chips, ``multi`` 512, ``card`` 1) the
 record holds the counted FLOPs and bytes (``cost``), the transcendentals
 beside them (``transcendentals``), the FLOPs by op class
 (``flops_by_class``) and the collective bytes per device (rank 0's of a
-sharded program, with ``collective_calls`` by kind; a GNN cell's split
-evenly over the chips), the per-device memory, the three roofline terms and bottleneck (``analysis.roofline``,
-H100 SXM5), the model FLOPs (the reference's formulas), ``run_s`` (the
+sharded program, with ``collective_calls`` by kind; a probe record's
+split evenly over the chips), the per-device memory, the three roofline
+terms and bottleneck (``analysis.roofline``, H100 SXM5), the model FLOPs (the reference's formulas), ``run_s`` (the
 counted runs' device time; ``host_s``, their host time, on meta),
 ``counted_on`` (``meta``, ``cpu``, or the card's name and power limit)
 and the card's name and power limit.  The roofline's collective term
@@ -215,7 +221,8 @@ def _run_probe(arch, shape: str, tag: str, ov: Dict[str, Any],
                mesh=None) -> Dict[str, Any]:
     """One counted run of the cell's step at one probe point; with a
     ``mesh``, one rank's run of the sharded program on meta DTensors
-    (plain tensors the step makes count as replicated)."""
+    (plain tensors the step makes count as replicated; the argument bytes
+    those of the inputs it reads)."""
     from repro_torch.analysis import count
 
     built = arch.build(shape, ov)
@@ -224,7 +231,8 @@ def _run_probe(arch, shape: str, tag: str, ov: Dict[str, Any],
     else:
         inputs = (built.make_inputs(device, seed) if mesh is None
                   else built.make_inputs(device, seed, mesh))
-        _, rec = count.measure(built.fn, inputs, device)
+        _, rec = count.measure(built.fn, inputs, device,
+                               read_only=mesh is not None)
         del inputs
     calls = collections.Counter(k for k, _ in rec.pop("collective_ops", []))
     if mesh is not None:
@@ -245,9 +253,9 @@ def _free(device) -> None:
         torch.cuda.empty_cache()
 
 
-#: Families counted as a sharded program on the production meshes (the
-#: GNNs' terms are still split evenly; MWIS counts its per-PE program).
-SHARDED_FAMILIES = ("lm", "recsys")
+#: Families counted as a sharded program on the production meshes (MWIS
+#: counts its per-PE program).
+SHARDED_FAMILIES = ("lm", "recsys", "gnn")
 #: The production meshes, by whether they span two pods.
 _MULTI_POD = {"single": False, "multi": True}
 
@@ -301,7 +309,7 @@ def _sharded_plan(arch, cfg, pinned=()
     """The sharded count's probes and full point: an LM cell at the
     reference's layer probes (:func:`_layer_plan`; every layer's work,
     collectives, shards and saved residuals alike, so the count is
-    affine in the layers of each kind), DLRM one run."""
+    affine in the layers of each kind), GNN and DLRM cells one run."""
     if arch.family != "lm" or "n_layers" in pinned:
         return [("full", {}, {})], {}
     return _layer_plan(arch, cfg)
@@ -333,8 +341,8 @@ def _caveats(arch, shape: str, point: Dict[str, int]) -> List[str]:
 def _abstract_cell(arch, shape: str, full_build, cli: Dict[str, Any],
                    seed: int, sharded=tuple(_MULTI_POD)) -> Dict[str, Any]:
     """``run_cell``'s abstract route: the cell counted on meta at its full
-    shape (prefill: at its layer probes, combined exactly); an LM or DLRM
-    cell also as a sharded program on each production mesh of
+    shape (prefill: at its layer probes, combined exactly); an LM, GNN or
+    DLRM cell also as a sharded program on each production mesh of
     ``sharded`` (``cell["sharded"][mesh]``, :func:`_sharded_count`)."""
     from repro_torch.analysis import extrapolate as ex
 
@@ -371,6 +379,10 @@ def _abstract_cell(arch, shape: str, full_build, cli: Dict[str, Any],
             release_fake_world()
     return cell
 
+
+#: Shapes whose counts take longest (GNN plans over 2.4 M nodes and 59
+#: edge chunks; prefill's tile loop): ``--all`` starts them first.
+SLOW_SHAPES = ("ogb_products", "prefill_32k")
 
 #: The exit code of a cell whose sharded count failed on a mesh (its
 #: records written, that mesh's with ``ok: false``).
@@ -444,7 +456,7 @@ def run_cell(arch_id: str, shape: str, device="cuda",
     shape (``device`` is not used); with ``abstract=False`` (the
     superseded probe route) at its probe points on ``device``,
     extrapolated.  An MWIS cell is counted on ``device`` either way.
-    On the abstract route an LM or DLRM cell is also counted as a
+    On the abstract route an LM, GNN or DLRM cell is also counted as a
     sharded program on each production mesh of ``sharded``
     (``cell["sharded"]``)."""
     from repro_torch import resolve_device
@@ -570,7 +582,7 @@ def mesh_record(arch_id: str, shape: str, mesh_kind: str,
                         cell["model_flops"] * scale, chips)
     split = ("terms of the counted run" if chips == 1 else
              f"terms split evenly over {chips} chips (not a sharded "
-             f"program)")
+             f"program{'' if cell['family'] == 'mwis' else ': probes'})")
     coll = ("collectives: the per-PE path's counted exchanges"
             if cell["family"] == "mwis" else
             "collectives: none counted (one card runs the step unsharded)")
@@ -742,6 +754,8 @@ def _run_all(args, passthrough: List[str]) -> None:
     pairs = list(dict.fromkeys((a, s) for a, s, _ in all_cells()))
     pooled = [c for c in pairs if not args.probes
               and registry.get(c[0]).family != "mwis"]
+    # the longest counts first, so that the pool's tail is short
+    pooled.sort(key=lambda c: c[1] not in SLOW_SHAPES)
     with ThreadPoolExecutor(max(1, (os.cpu_count() or 3) - 2)) as pool:
         ok = list(pool.map(lambda c: _run_one(args, passthrough, *c),
                            pooled))

@@ -227,6 +227,30 @@ def abstract_dtensor(shape: Tuple[int, ...], dtype: torch.dtype, places,
                               stride=contiguous_strides(shape))
 
 
+def block_slices(shape: Tuple[int, ...], places, mesh) -> Tuple[slice, ...]:
+    """This rank's block of a tensor of ``shape`` laid out by ``places``
+    on ``mesh``, one slice a dim (a dim cut by several mesh dims is cut
+    in mesh-dim order, as DTensor cuts it; every cut divides)."""
+    coord = mesh.get_coordinate()
+    lo, n = [0] * len(shape), list(shape)
+    for m, p in enumerate(places):
+        if p.is_shard():
+            n[p.dim] //= mesh.size(m)
+            lo[p.dim] = lo[p.dim] * mesh.size(m) + coord[m]
+    return tuple(slice(b * k, (b + 1) * k) for b, k in zip(lo, n))
+
+
+def local_dtensor(x: torch.Tensor, places, mesh) -> torch.Tensor:
+    """``x``, which every rank holds whole, as a DTensor laid out by
+    ``places`` on ``mesh``: this rank's block (:func:`block_slices`) is
+    its shard, and no data moves."""
+    from torch.distributed.tensor import DTensor
+
+    local = x[block_slices(tuple(x.shape), places, mesh)].contiguous()
+    return DTensor.from_local(local, mesh, tuple(places), run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
 def abstract_sharded_params(specs: ParamTree, mesh) -> ParamTree:
     """``specs`` as DTensors on ``mesh`` laid out by each leaf's spec, the
     local shards meta tensors (the reference lowers its abstract params
@@ -325,7 +349,7 @@ def shard_hint(x: torch.Tensor, *spec) -> torch.Tensor:
     if _HINT_MESH is None or not is_dtensor(x):
         return x
     names = tuple(_HINT_MESH.mesh_dim_names)
-    fsdp = _fsdp_axes(_HINT_MESH)
+    fsdp = fsdp_axes(_HINT_MESH)
     resolved = []
     for ent in spec:
         if ent == "fsdp":
@@ -340,8 +364,53 @@ def shard_hint(x: torch.Tensor, *spec) -> torch.Tensor:
     return x.redistribute(_HINT_MESH, places)
 
 
-def _fsdp_axes(mesh) -> Tuple[str, ...]:
+def fsdp_axes(mesh) -> Tuple[str, ...]:
+    """The mesh's FSDP axes (``pod`` and ``data``, those it has)."""
     return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+
+
+def _laid_out_full(like, shape, value, dtype, spec) -> torch.Tensor:
+    """A DTensor of ``shape`` filled with ``value``, on ``like``'s mesh,
+    laid out by ``spec`` (resolved and sanitised as :func:`shard_hint`
+    does): each rank makes its own shard only."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = like.device_mesh
+    f = fsdp_axes(mesh)
+    spec = tuple(f if e == "fsdp" else e for e in spec)
+    places = placements(tuple(shape), spec, mesh)
+    local = torch.full(local_shape(tuple(shape), places, mesh), value,
+                       dtype=dtype, device=like.to_local().device)
+    return DTensor.from_local(local, mesh, places, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
+def new_zeros(like: torch.Tensor, shape, *spec) -> torch.Tensor:
+    """``like.new_zeros(shape)``; where ``like`` is a DTensor, laid out by
+    ``spec`` (the layout the reference's program gives such an array) and
+    made shard by shard, not whole on every rank."""
+    if is_dtensor(like):
+        return _laid_out_full(like, shape, 0, like.dtype, spec)
+    return like.new_zeros(shape)
+
+
+def zeros(like: torch.Tensor, shape, dtype: torch.dtype,
+          *spec) -> torch.Tensor:
+    """``torch.zeros(shape)`` on ``like``'s device; where ``like`` is a
+    DTensor, laid out by ``spec`` as :func:`new_zeros`."""
+    if is_dtensor(like):
+        return _laid_out_full(like, shape, 0, dtype, spec)
+    return torch.zeros(shape, dtype=dtype, device=like.device)
+
+
+def full(like: torch.Tensor, shape, value, dtype: torch.dtype,
+         *spec) -> torch.Tensor:
+    """``torch.full(shape, value)`` on ``like``'s device; where ``like``
+    is a DTensor, laid out by ``spec`` as :func:`new_zeros`."""
+    if is_dtensor(like):
+        return _laid_out_full(like, shape, value, dtype, spec)
+    return torch.full(shape, value, dtype=dtype, device=like.device)
 
 
 def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
@@ -357,7 +426,7 @@ def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import Replicate
 
     fsdp = {i for i, a in enumerate(_HINT_MESH.mesh_dim_names)
-            if a in _fsdp_axes(_HINT_MESH)}
+            if a in fsdp_axes(_HINT_MESH)}
     if not any(w.placements[i].is_shard() for i in fsdp):
         return w
     return w.redistribute(_HINT_MESH, tuple(

@@ -11,7 +11,10 @@ stacked blocks is a loop over their slices (``common.layer_slices``).
 Three plans a forward:
 ``col`` (edges into nodes), ``to`` (triplets into their out-edge: only the
 triplets ``tmask`` keeps, since the reference clamps every padding triplet
-onto edge ``E - 1``) and ``batch_id`` (nodes into graphs).
+onto edge ``E - 1``) and ``batch_id`` (nodes into graphs).  On a mesh the
+triplet sums and the energies are replicated and the node sums lie over
+the fsdp axes, as XLA's program has them; the edge products with a
+model-sharded weight go through ``common.linear``.
 """
 
 from __future__ import annotations
@@ -46,25 +49,29 @@ class DimeNetConfig:
     dtype: Any = torch.float32
 
 
-def param_specs(cfg: DimeNetConfig) -> Dict[str, Any]:
+def param_specs(cfg: DimeNetConfig, fsdp=("data",)) -> Dict[str, Any]:
     S = ParamSpec
     d, nb = cfg.d_hidden, cfg.n_blocks
     nsr = cfg.n_spherical * cfg.n_radial
     return {
-        "embed_node": S((cfg.d_feat, d), cfg.dtype),
-        "embed_rbf": S((cfg.n_radial, d), cfg.dtype),
-        "embed_msg": S((3 * d, d), cfg.dtype),
+        "embed_node": S((cfg.d_feat, d), cfg.dtype, (None, "model")),
+        "embed_rbf": S((cfg.n_radial, d), cfg.dtype, (None, None)),
+        "embed_msg": S((3 * d, d), cfg.dtype, (None, "model")),
         "blocks": {
-            "w_msg": S((nb, d, d), cfg.dtype),
-            "w_down": S((nb, d, cfg.n_bilinear), cfg.dtype),
-            "w_sbf": S((nb, nsr, cfg.n_bilinear), cfg.dtype),
-            "w_up": S((nb, cfg.n_bilinear, d), cfg.dtype),
-            "w_rbf_gate": S((nb, cfg.n_radial, d), cfg.dtype),
-            "w_out1": S((nb, d, d), cfg.dtype),
-            "w_out2": S((nb, d, d), cfg.dtype),
+            "w_msg": S((nb, d, d), cfg.dtype, (None, None, "model")),
+            "w_down": S((nb, d, cfg.n_bilinear), cfg.dtype,
+                        (None, None, None)),
+            "w_sbf": S((nb, nsr, cfg.n_bilinear), cfg.dtype,
+                       (None, None, None)),
+            "w_up": S((nb, cfg.n_bilinear, d), cfg.dtype,
+                      (None, None, "model")),
+            "w_rbf_gate": S((nb, cfg.n_radial, d), cfg.dtype,
+                            (None, None, None)),
+            "w_out1": S((nb, d, d), cfg.dtype, (None, "model", None)),
+            "w_out2": S((nb, d, d), cfg.dtype, (None, None, "model")),
         },
-        "head_w1": S((d, d), cfg.dtype),
-        "head_w2": S((d, 1), cfg.dtype),
+        "head_w1": S((d, d), cfg.dtype, (None, "model")),
+        "head_w2": S((d, 1), cfg.dtype, ("model", None)),
     }
 
 
@@ -93,12 +100,16 @@ def plans(batch: Dict[str, Any], cfg: DimeNetConfig) -> Dict[str, Any]:
     triplets, ``batch_id``."""
     n, dev = batch["node_feat"].shape[0], batch["node_feat"].device
     hb = G.host_view(batch)
-    E = hb["row"].shape[0]
+    E = batch["row"].shape[0]
     _, to, tmask = _triplet_ends(hb, E)
-    return {"col": G.scatter_plan(hb["col"], n, hb["row"] < n, device=dev),
-            "to": G.scatter_plan(to, E, tmask, device=dev),
+    # on a mesh: node sums onto rows over the fsdp axes, the triplets'
+    # sums onto their (replicated) edges, the energies replicated
+    return {"col": G.scatter_plan(hb["col"], n, hb["row"] < n, device=dev,
+                                  like=batch["col"], rows=("fsdp",)),
+            "to": G.scatter_plan(to, E, tmask, device=dev,
+                                 like=batch["triplets"]),
             "batch_id": G.scatter_plan(hb["batch_id"], batch["n_graphs"],
-                                       device=dev)}
+                                       device=dev, like=batch["batch_id"])}
 
 
 def forward(params: DimeNet, batch: Dict[str, Any],
@@ -111,39 +122,44 @@ def forward(params: DimeNet, batch: Dict[str, Any],
     E = row.shape[0]
     emask = row < n
     pl = plans(batch, cfg)
-    posp = torch.cat([batch["pos"].to(cfg.dtype),
-                      batch["pos"].new_zeros((1, 3), dtype=cfg.dtype)])
-    vec = posp[col] - posp[row]
+    posp = G.pad_row(batch["pos"].to(cfg.dtype))
+    vec = G.gather_rows(posp, col) - G.gather_rows(posp, row)
     dist = torch.linalg.vector_norm(vec + (~emask[:, None]) * 1.0, dim=-1)
     dirs = vec / torch.clamp(dist[:, None], min=1e-6)
     rbf = G.radial_basis(dist, cfg.n_radial, cfg.cutoff) * emask[:, None]
 
-    h = batch["node_feat"].to(cfg.dtype) @ params.embed_node
-    hp = torch.cat([h, h.new_zeros((1, cfg.d_hidden))])
-    m = F.silu(torch.cat([hp[row], hp[col], rbf @ params.embed_rbf], dim=-1)
-               @ params.embed_msg) * emask[:, None]
+    h = G.linear(batch["node_feat"].to(cfg.dtype), params.embed_node)
+    hp = G.pad_row(h)
+    m = F.silu(G.linear(torch.cat([G.gather_rows(hp, row),
+                                   G.gather_rows(hp, col),
+                                   G.linear(rbf, params.embed_rbf)], dim=-1),
+                        params.embed_msg)) * emask[:, None]
 
     # triplet geometry: angle between in-edge and out-edge directions
     ti, to, tmask = _triplet_ends(batch, E)
-    cos_a = (-dirs[ti] * dirs[to]).sum(-1).clamp(-1.0, 1.0)
+    cos_a = (-G.gather_rows(dirs, ti) * G.gather_rows(dirs, to)).sum(-1) \
+        .clamp(-1.0, 1.0)
     angle = torch.arccos(cos_a)
     sbf = (G.angular_basis(angle, cfg.n_spherical)[:, :, None]
-           * G.radial_basis(dist[ti], cfg.n_radial, cfg.cutoff)[:, None, :]
+           * G.radial_basis(G.gather_rows(dist, ti), cfg.n_radial,
+                            cfg.cutoff)[:, None, :]
            ).reshape(-1, cfg.n_spherical * cfg.n_radial) * tmask[:, None]
 
-    node_out = h.new_zeros((n, cfg.d_hidden))
+    node_out = C.new_zeros(h, (n, cfg.d_hidden), "fsdp", None)
     for bp in C.layer_slices({k: getattr(params.blocks, k) for k in BLOCK}):
         # bilinear triplet interaction (DimeNet++ down/up projection)
-        m_in = m[ti] @ bp["w_down"]                          # [T, nbil]
-        tmsg = m_in * (sbf @ bp["w_sbf"])                    # [T, nbil]
-        agg = G.scatter_sum(torch.where(tmask[:, None], tmsg, 0),
-                            pl["to"]) @ bp["w_up"]           # [E, d]
-        m_new = F.silu(m @ bp["w_msg"] + agg) * emask[:, None]
+        m_in = G.linear(G.gather_rows(m, ti), bp["w_down"])  # [T, nbil]
+        tmsg = m_in * G.linear(sbf, bp["w_sbf"])             # [T, nbil]
+        agg = G.linear(G.scatter_sum(torch.where(tmask[:, None], tmsg, 0),
+                                     pl["to"]), bp["w_up"])  # [E, d]
+        m_new = F.silu(G.linear(m, bp["w_msg"]) + agg) * emask[:, None]
         m = m + m_new
-        gate = rbf @ bp["w_rbf_gate"]                        # [E, d]
+        gate = G.linear(rbf, bp["w_rbf_gate"])               # [E, d]
         contrib = G.scatter_sum(m * gate, pl["col"])
-        node_out = node_out + F.silu(contrib @ bp["w_out1"]) @ bp["w_out2"]
-    per_node = F.silu(node_out @ params.head_w1) @ params.head_w2
+        node_out = node_out + G.linear(
+            F.silu(G.linear(contrib, bp["w_out1"])), bp["w_out2"])
+    per_node = G.linear(F.silu(G.linear(node_out, params.head_w1)),
+                        params.head_w2)
     energies = G.scatter_sum(per_node, pl["batch_id"])
     return energies.squeeze(1)
 

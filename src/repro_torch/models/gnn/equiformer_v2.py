@@ -19,6 +19,13 @@ The max is ``scatter_reduce(amax)`` from -1e30; the sums go through
 ``lax.scan`` over the stacked layers is a loop over their slices
 (``common.layer_slices``); ``probe_unroll`` (a scan
 unroll for the TPU dry-run) is not carried.
+
+On a mesh (the sharded count) the reference's four ``shard_hint`` calls
+lay the node irreps and the accumulators' rows over the fsdp axes (the
+port's accumulators hold n rows, which the axes divide; the reference's
+n + 1 replicate), each edge chunk lies over every axis
+(:func:`chunk_layout`), and its plan is packed from this rank's block of
+it.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import is_dtensor
 from repro_torch.models import common as C
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.gnn import common as G
@@ -79,28 +87,30 @@ def lm_maps(cfg: EquiformerV2Config,
             torch.tensor(l_of, dtype=torch.long, device=device))
 
 
-def param_specs(cfg: EquiformerV2Config) -> Dict[str, Any]:
+def param_specs(cfg: EquiformerV2Config, fsdp=("data",)) -> Dict[str, Any]:
     S = ParamSpec
     L, d, H = cfg.n_layers, cfg.d_hidden, cfg.n_heads
     n_l = cfg.l_max + 1
     return {
-        "embed_node": S((cfg.d_feat, d), cfg.dtype),
+        "embed_node": S((cfg.d_feat, d), cfg.dtype, (None, "model")),
         "layers": {
             # per-l channel mixers (SO(2)-conv block-diagonal pattern)
-            "w_src": S((L, n_l, d, d), cfg.dtype),
-            "w_msg": S((L, n_l, d, d), cfg.dtype),
-            "w_rad": S((L, cfg.n_radial, n_l * d), cfg.dtype),
+            "w_src": S((L, n_l, d, d), cfg.dtype, (None, None, None, "model")),
+            "w_msg": S((L, n_l, d, d), cfg.dtype, (None, None, "model", None)),
+            "w_rad": S((L, cfg.n_radial, n_l * d), cfg.dtype,
+                       (None, None, None)),
             # attention scores from scalar channels
-            "w_att_src": S((L, d, H), cfg.dtype),
-            "w_att_dst": S((L, d, H), cfg.dtype),
-            "w_att_rbf": S((L, cfg.n_radial, H), cfg.dtype),
+            "w_att_src": S((L, d, H), cfg.dtype, (None, None, None)),
+            "w_att_dst": S((L, d, H), cfg.dtype, (None, None, None)),
+            "w_att_rbf": S((L, cfg.n_radial, H), cfg.dtype,
+                           (None, None, None)),
             # gated nonlinearity
-            "w_gate": S((L, d, n_l * d), cfg.dtype),
-            "ln_g": S((L, d), cfg.dtype, init="ones"),
-            "ln_b": S((L, d), cfg.dtype, init="zeros"),
+            "w_gate": S((L, d, n_l * d), cfg.dtype, (None, None, None)),
+            "ln_g": S((L, d), cfg.dtype, (None, None), init="ones"),
+            "ln_b": S((L, d), cfg.dtype, (None, None), init="zeros"),
         },
-        "head_w1": S((d, d), cfg.dtype),
-        "head_w2": S((d, 1), cfg.dtype),
+        "head_w1": S((d, d), cfg.dtype, (None, "model")),
+        "head_w2": S((d, 1), cfg.dtype, ("model", None)),
     }
 
 
@@ -117,13 +127,17 @@ MODEL = EquiformerV2
 
 def _chunks(batch: Dict[str, Any], cfg: EquiformerV2Config):
     """row and col padded with the sentinel n to whole chunks:
-    ([n_chunks, ec], [n_chunks, ec])."""
+    ([n_chunks, ec], [n_chunks, ec]); of DTensors (on a mesh), two lists
+    of n_chunks chunks, each laid out as :func:`chunk_layout` says."""
     n = batch["node_feat"].shape[0]
     row, col = batch["row"].long(), batch["col"].long()
     E = row.shape[0]
     ec = min(cfg.edge_chunk, E)
     n_chunks = (E + ec - 1) // ec
     pad = n_chunks * ec - E
+    if is_dtensor(row):
+        return (_laid_out_chunks(row, n, ec, n_chunks),
+                _laid_out_chunks(col, n, ec, n_chunks))
 
     def pad_e(a):
         return torch.cat([a, a.new_full((pad,), n)]) if pad else a
@@ -131,17 +145,56 @@ def _chunks(batch: Dict[str, Any], cfg: EquiformerV2Config):
     return pad_e(row).reshape(n_chunks, ec), pad_e(col).reshape(n_chunks, ec)
 
 
+def chunk_layout(mesh, ec: int) -> G.Layout:
+    """The layout of one edge chunk of ``ec`` edges on ``mesh``: over
+    every axis (fsdp + ``model``, as the edges), sanitised.  The
+    reference's program reshapes an [E] sharded so into [n_chunks, ec]
+    and scans the chunks, each chunk's edges spread over the devices."""
+    return G.Layout(mesh, C.placements(
+        (ec,), (tuple(mesh.mesh_dim_names),), mesh))
+
+
+def _laid_out_chunks(a, fill: int, ec: int, n_chunks: int) -> list:
+    """An edge array (a DTensor) cut into chunks of ``ec`` (the last
+    padded with ``fill``), each laid out by :func:`chunk_layout`.  One
+    chunk that is the array keeps it as it is; otherwise the ids are
+    all-gathered and each rank takes its block of every chunk."""
+    lay = chunk_layout(a.device_mesh, ec)
+    if n_chunks * ec == a.shape[0] == ec and (
+            tuple(a.placements) == lay.placements):
+        return [a]
+    whole = C.replicated(a)
+    pad = n_chunks * ec - whole.shape[0]
+    if pad:
+        whole = torch.cat([whole, whole.new_full((pad,), fill)])
+    return [C.local_dtensor(c, lay.placements, lay.device_mesh)
+            for c in whole.reshape(n_chunks, ec)]
+
+
 def plans(batch: Dict[str, Any], cfg: EquiformerV2Config) -> Dict[str, Any]:
     """The forward's scatter plans (host packing, from the batch's host
     copies where it has them): each edge chunk's ``col`` (live edges) and
-    ``batch_id``."""
+    ``batch_id``.  On a mesh each chunk's plan is packed from this rank's
+    block of the chunk, cut from the whole host arrays
+    (``batch["host_whole"]``), and sums onto node rows over the fsdp
+    axes; the energies' is replicated."""
     n, dev = batch["node_feat"].shape[0], batch["node_feat"].device
     hb = G.host_view(batch)
-    row_c, col_c = _chunks(hb, cfg)
-    return {"chunks": [G.scatter_plan(c, n, r < n, device=dev)
+    bid = G.scatter_plan(hb["batch_id"], batch["n_graphs"], device=dev,
+                         like=batch["batch_id"])
+    if not is_dtensor(batch["row"]):
+        row_c, col_c = _chunks(hb, cfg)
+        return {"chunks": [G.scatter_plan(c, n, r < n, device=dev)
+                           for r, c in zip(row_c, col_c)],
+                "batch_id": bid}
+    row_c, col_c = _chunks({**batch, **batch["host_whole"]}, cfg)
+    lay = chunk_layout(batch["row"].device_mesh, row_c.shape[1])
+    cut = C.block_slices(tuple(row_c.shape[1:]), lay.placements,
+                         lay.device_mesh)
+    return {"chunks": [G.scatter_plan(c[cut], n, r[cut] < n, device=dev,
+                                      like=lay, rows=("fsdp",))
                        for r, c in zip(row_c, col_c)],
-            "batch_id": G.scatter_plan(hb["batch_id"], batch["n_graphs"],
-                                       device=dev)}
+            "batch_id": bid}
 
 
 def forward(params: EquiformerV2, batch: Dict[str, Any],
@@ -156,49 +209,56 @@ def forward(params: EquiformerV2, batch: Dict[str, Any],
 
     posp = torch.cat([batch["pos"].to(cfg.dtype),
                       torch.zeros((1, 3), dtype=cfg.dtype, device=dev)])
-    h0 = batch["node_feat"].to(cfg.dtype) @ params.embed_node   # [N, d]
-    x = torch.cat([h0[:, None, :], h0.new_zeros((n, n_lm - 1, d))], dim=1)
+    h0 = G.linear(batch["node_feat"].to(cfg.dtype), params.embed_node)
+    x = torch.cat([h0[:, None, :],
+                   C.new_zeros(h0, (n, n_lm - 1, d), "fsdp", None, None)],
+                  dim=1)
+    x = C.shard_hint(x, "fsdp", None, None)
 
     def edge_geometry(rows, cols):
         emask = rows < n
-        vec = posp[cols] - posp[rows]
+        vec = G.gather_rows(posp, cols) - G.gather_rows(posp, rows)
         dist = torch.linalg.vector_norm(vec + (~emask[:, None]) * 1.0,
                                         dim=-1)
         dirs = vec / torch.clamp(dist[:, None], min=1e-6)
         rbf = G.radial_basis(dist, cfg.n_radial, cfg.cutoff) \
             * emask[:, None]
-        sh = G.spherical_harmonics_dirs(dirs, cfg.l_max)[:, keep_idx]
+        sh = G.take(G.spherical_harmonics_dirs(dirs, cfg.l_max), keep_idx, 1)
         return emask, rbf, sh
 
     for lp in C.layer_slices({k: getattr(params.layers, k) for k in LAYER}):
-        xp = torch.cat([x, x.new_zeros((1, n_lm, d))])
-        w_src = lp["w_src"][l_of]
+        xp = G.pad_row(x)
+        w_src = G.take(lp["w_src"], l_of, 0)
         if cfg.transform_then_gather:
             # node-side per-l mixing (linear, so it commutes with the
             # gather) and node-side score features
-            yp = torch.einsum("nlc,lcd->nld", xp, w_src).to(cfg.act_dtype)
-            a_src = xp[:, 0, :] @ lp["w_att_src"]            # [N+1, H]
-            a_dst = xp[:, 0, :] @ lp["w_att_dst"]
+            # (on a mesh gathered whole once a layer, not once a chunk)
+            yp = G.whole(C.einsum("nlc,lcd->nld", xp, w_src)
+                         .to(cfg.act_dtype))
+            a_src = G.linear(xp[:, 0, :], lp["w_att_src"])   # [N+1, H]
+            a_dst = G.linear(xp[:, 0, :], lp["w_att_dst"])
         else:
             yp = a_src = a_dst = None
 
         def chunk_score(rows, cols, emask, rbf, xp=xp, lp=lp, a_src=a_src,
                         a_dst=a_dst):
             if cfg.transform_then_gather:
-                score = a_src[rows] + a_dst[cols] + rbf @ lp["w_att_rbf"]
+                score = (G.gather_rows(a_src, rows)
+                         + G.gather_rows(a_dst, cols)
+                         + G.linear(rbf, lp["w_att_rbf"]))
             else:
-                s0_src, s0_dst = xp[rows][:, 0, :], xp[cols][:, 0, :]
-                score = (s0_src @ lp["w_att_src"]
-                         + s0_dst @ lp["w_att_dst"]
-                         + rbf @ lp["w_att_rbf"])
+                s0_src = G.gather_rows(xp, rows)[:, 0, :]
+                s0_dst = G.gather_rows(xp, cols)[:, 0, :]
+                score = (G.linear(s0_src, lp["w_att_src"])
+                         + G.linear(s0_dst, lp["w_att_dst"])
+                         + G.linear(rbf, lp["w_att_rbf"]))
             return torch.where(emask[:, None], score, -1e30)
 
         # pass 1: segment-softmax stats (max) over incoming edges, chunked
         def p1(smax, rows, cols, chunk_score=chunk_score):
             emask, rbf, _ = edge_geometry(rows, cols)
             score = chunk_score(rows, cols, emask, rbf)
-            return smax.scatter_reduce(0, cols[:, None].expand(-1, H), score,
-                                       "amax", include_self=True)
+            return G.scatter_amax(smax, cols, score)
 
         smax = torch.full((n + 1, H), -1e30, dtype=torch.float32, device=dev)
         for rows, cols in zip(row_c, col_c):
@@ -210,31 +270,39 @@ def forward(params: EquiformerV2, batch: Dict[str, Any],
                xp=xp, w_src=w_src, lp=lp, smax=smax):
             emask, rbf, sh = edge_geometry(rows, cols)
             score = chunk_score(rows, cols, emask, rbf)
-            p = torch.exp(score - smax[cols]) * emask[:, None]   # [ec, H]
+            p = torch.exp(score - G.gather_rows(smax, cols)) \
+                * emask[:, None]                              # [ec, H]
             den = den + G.scatter_sum(p, plan)
-            rad = (rbf @ lp["w_rad"]).reshape(-1, cfg.l_max + 1, d)[:, l_of]
+            rad = G.take(G.linear(rbf, lp["w_rad"]).reshape(
+                -1, cfg.l_max + 1, d), l_of, 1)
             if cfg.transform_then_gather:
-                msg = yp[rows].float()                       # [ec, n_lm, d]
+                msg = G.gather_rows(yp, rows).float()        # [ec, n_lm, d]
             else:
-                msg = torch.einsum("elc,lcd->eld", xp[rows], w_src)
+                msg = C.einsum("elc,lcd->eld", G.gather_rows(xp, rows), w_src)
             msg = msg * sh[:, :, None] * rad
             msg = msg.reshape(-1, n_lm, H, d // H) * p[:, None, :, None]
             agg = agg + G.scatter_sum(msg.reshape(-1, n_lm * d), plan)
             return den, agg
 
-        den = torch.full((n, H), 1e-9, dtype=torch.float32, device=dev)
-        agg = torch.zeros((n, n_lm * d), dtype=torch.float32, device=dev)
+        # the accumulators' rows over the fsdp axes (the reference hints
+        # [n + 1] rows so, which no axis divides; the port's have n)
+        den = C.shard_hint(C.full(x, (n, H), 1e-9, torch.float32, "fsdp",
+                                  None), "fsdp", None)
+        agg = C.shard_hint(C.zeros(x, (n, n_lm * d), torch.float32, "fsdp",
+                                   None), "fsdp", None)
         for rows, cols, plan in zip(row_c, col_c, pl["chunks"]):
             den, agg = checkpoint(p2, den, agg, rows, cols, plan,
                                   use_reentrant=False)
-        alpha_den = torch.repeat_interleave(den, d // H, dim=1)   # [n, d]
+        alpha_den = G.repeat_cols(den, d // H)                    # [n, d]
         agg = (agg.reshape(n, n_lm, d) / alpha_den[:, None, :]).to(x.dtype)
-        upd = torch.einsum("nlc,lcd->nld", agg, lp["w_msg"][l_of])
+        upd = C.einsum("nlc,lcd->nld", agg, G.take(lp["w_msg"], l_of, 0))
         # gated nonlinearity: scalars gate everything
         s = G.layer_norm(upd[:, 0, :], lp["ln_g"], lp["ln_b"])
-        gate = torch.sigmoid(s @ lp["w_gate"]).reshape(n, cfg.l_max + 1, d)
-        x = x + upd * gate[:, l_of, :]
-    per_node = F.silu(x[:, 0, :] @ params.head_w1) @ params.head_w2
+        gate = torch.sigmoid(G.linear(s, lp["w_gate"])).reshape(
+            n, cfg.l_max + 1, d)
+        x = C.shard_hint(x + upd * G.take(gate, l_of, 1), "fsdp", None, None)
+    per_node = G.linear(F.silu(G.linear(x[:, 0, :], params.head_w1)),
+                        params.head_w2)
     energies = G.scatter_sum(per_node, pl["batch_id"])
     return energies.squeeze(1)
 

@@ -7,7 +7,9 @@
 The port of ``repro/models/gnn/gatedgcn.py``: the reference's
 ``lax.scan`` over the stacked ``[L, d, d]`` layers is a loop over their
 slices (``common.layer_slices``); one plan of ``col`` serves every layer's
-two sums.
+two sums.  On a mesh the edge products go through ``common.linear`` (the
+model-sharded weights stay in place, as GSPMD keeps them) and the edge
+state is broadcast to each rank's own edges (``common.expand_rows``).
 """
 
 from __future__ import annotations
@@ -38,21 +40,23 @@ class GatedGCNConfig:
     dtype: Any = torch.float32
 
 
-def param_specs(cfg: GatedGCNConfig) -> Dict[str, Any]:
+def param_specs(cfg: GatedGCNConfig, fsdp=("data",)) -> Dict[str, Any]:
     L, d = cfg.n_layers, cfg.d_hidden
     S = ParamSpec
     return {
-        "embed_w": S((cfg.d_feat, d), cfg.dtype),
-        "embed_b": S((d,), cfg.dtype, init="zeros"),
-        "edge_embed": S((1, d), cfg.dtype),
-        "layers": {k: S((L, d, d), cfg.dtype) for k in MATS} | {
-            "ln_h_g": S((L, d), cfg.dtype, init="ones"),
-            "ln_h_b": S((L, d), cfg.dtype, init="zeros"),
-            "ln_e_g": S((L, d), cfg.dtype, init="ones"),
-            "ln_e_b": S((L, d), cfg.dtype, init="zeros"),
+        "embed_w": S((cfg.d_feat, d), cfg.dtype, (None, "model")),
+        "embed_b": S((d,), cfg.dtype, (None,), init="zeros"),
+        "edge_embed": S((1, d), cfg.dtype, (None, None)),
+        "layers": {
+            k: S((L, d, d), cfg.dtype, (None, None, "model")) for k in MATS
+        } | {
+            "ln_h_g": S((L, d), cfg.dtype, (None, None), init="ones"),
+            "ln_h_b": S((L, d), cfg.dtype, (None, None), init="zeros"),
+            "ln_e_g": S((L, d), cfg.dtype, (None, None), init="ones"),
+            "ln_e_b": S((L, d), cfg.dtype, (None, None), init="zeros"),
         },
-        "out_w": S((d, cfg.n_classes), cfg.dtype),
-        "out_b": S((cfg.n_classes,), cfg.dtype, init="zeros"),
+        "out_w": S((d, cfg.n_classes), cfg.dtype, ("model", None)),
+        "out_b": S((cfg.n_classes,), cfg.dtype, (None,), init="zeros"),
     }
 
 
@@ -72,7 +76,8 @@ def plans(batch: Dict[str, Any], cfg: GatedGCNConfig) -> Dict[str, Any]:
     copies where it has them): ``col``'s live edges."""
     n, dev = batch["node_feat"].shape[0], batch["node_feat"].device
     hb = G.host_view(batch)
-    return {"col": G.scatter_plan(hb["col"], n, hb["row"] < n, device=dev)}
+    return {"col": G.scatter_plan(hb["col"], n, hb["row"] < n, device=dev,
+                                  like=batch["col"], rows=("fsdp",))}
 
 
 def forward(params: GatedGCN, batch: Dict[str, Any],
@@ -82,24 +87,26 @@ def forward(params: GatedGCN, batch: Dict[str, Any],
     row, col = batch["row"].long(), batch["col"].long()
     emask = row < n
     plan = plans(batch, cfg)["col"]
-    h = batch["node_feat"].to(cfg.dtype) @ params.embed_w + params.embed_b
-    e = params.edge_embed.expand(row.shape[0], cfg.d_hidden)
+    h = G.linear(batch["node_feat"].to(cfg.dtype), params.embed_w) \
+        + params.embed_b
+    e = G.expand_rows(params.edge_embed, row)
     layers = C.layer_slices({k: getattr(params.layers, k)
                              for k in MATS + NORMS})
     for lp in layers:
-        hp = torch.cat([h, h.new_zeros((1, h.shape[1]))])
-        hu, hv = hp[row], hp[col]
-        e_new = hu @ lp["E1"] + hv @ lp["E2"] + e @ lp["E3"]
+        hp = G.pad_row(h)
+        hu, hv = G.gather_rows(hp, row), G.gather_rows(hp, col)
+        e_new = (G.linear(hu, lp["E1"]) + G.linear(hv, lp["E2"])
+                 + G.linear(e, lp["E3"]))
         e_new = G.layer_norm(e_new, lp["ln_e_g"], lp["ln_e_b"])
         gate = torch.sigmoid(e_new) * emask[:, None]
-        msg = gate * (hu @ lp["V"])
+        msg = gate * G.linear(hu, lp["V"])
         agg = G.scatter_sum(msg, plan)
         den = G.scatter_sum(gate, plan) + 1e-6
-        upd = h @ lp["U"] + agg / den
+        upd = G.linear(h, lp["U"]) + agg / den
         upd = G.layer_norm(upd, lp["ln_h_g"], lp["ln_h_b"])
         h = h + C.relu(upd)
         e = e + C.relu(e_new)
-    return h @ params.out_w + params.out_b
+    return G.linear(h, params.out_w) + params.out_b
 
 
 def loss_fn(params: GatedGCN, batch: Dict[str, Any],

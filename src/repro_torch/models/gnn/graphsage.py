@@ -32,18 +32,18 @@ class GraphSAGEConfig:
     dtype: Any = torch.float32
 
 
-def param_specs(cfg: GraphSAGEConfig) -> Dict[str, Any]:
+def param_specs(cfg: GraphSAGEConfig, fsdp=("data",)) -> Dict[str, Any]:
     S = ParamSpec
     specs: Dict[str, Any] = {}
     d_in = cfg.d_feat
     for i in range(cfg.n_layers):
         d_out = cfg.d_hidden
-        specs[f"l{i}_self"] = S((d_in, d_out), cfg.dtype)
-        specs[f"l{i}_nbr"] = S((d_in, d_out), cfg.dtype)
-        specs[f"l{i}_b"] = S((d_out,), cfg.dtype, init="zeros")
+        specs[f"l{i}_self"] = S((d_in, d_out), cfg.dtype, (None, "model"))
+        specs[f"l{i}_nbr"] = S((d_in, d_out), cfg.dtype, (None, "model"))
+        specs[f"l{i}_b"] = S((d_out,), cfg.dtype, (None,), init="zeros")
         d_in = d_out
-    specs["out_w"] = S((d_in, cfg.n_classes), cfg.dtype)
-    specs["out_b"] = S((cfg.n_classes,), cfg.dtype, init="zeros")
+    specs["out_w"] = S((d_in, cfg.n_classes), cfg.dtype, ("model", None))
+    specs["out_b"] = S((cfg.n_classes,), cfg.dtype, (None,), init="zeros")
     return specs
 
 
@@ -63,7 +63,8 @@ def plans(batch: Dict[str, Any], cfg: GraphSAGEConfig) -> Dict[str, Any]:
     copies where it has them): ``col``'s live edges."""
     n, dev = batch["node_feat"].shape[0], batch["node_feat"].device
     hb = G.host_view(batch)
-    return {"col": G.scatter_plan(hb["col"], n, hb["row"] < n, device=dev)}
+    return {"col": G.scatter_plan(hb["col"], n, hb["row"] < n, device=dev,
+                                  like=batch["col"], rows=("fsdp",))}
 
 
 def forward(params: GraphSAGE, batch: Dict[str, Any],
@@ -74,17 +75,17 @@ def forward(params: GraphSAGE, batch: Dict[str, Any],
     plan = plans(batch, cfg)["col"]
     h = batch["node_feat"].to(cfg.dtype)
     for i in range(cfg.n_layers):
-        hp = torch.cat([h, h.new_zeros((1, h.shape[1]))])
-        agg = G.scatter_mean(hp[row], plan, mask=emask)
+        hp = G.pad_row(h)
+        agg = G.scatter_mean(G.gather_rows(hp, row), plan, mask=emask)
         h = C.relu(
-            h @ getattr(params, f"l{i}_self")
-            + agg @ getattr(params, f"l{i}_nbr")
+            G.linear(h, getattr(params, f"l{i}_self"))
+            + G.linear(agg, getattr(params, f"l{i}_nbr"))
             + getattr(params, f"l{i}_b"))
         # L2 normalisation as in the paper (jnp.linalg.norm's sqrt of the
         # sum of squares)
         norm = torch.sqrt((h * h).sum(-1, keepdim=True))
         h = h / torch.clamp(norm, min=1e-6)
-    return h @ params.out_w + params.out_b
+    return G.linear(h, params.out_w) + params.out_b
 
 
 def loss_fn(params: GraphSAGE, batch: Dict[str, Any],

@@ -6,6 +6,11 @@ it is first imported, and each side of a comparison gets a process.
   python tests/_sharded_ref.py small SHAPE AXES ARCH
   python tests/_sharded_ref.py port-shards MULTI
   python tests/_sharded_ref.py port-small SHAPE AXES ARCH
+  python tests/_sharded_ref.py gnn-shards N     # every GNN cell
+  python tests/_sharded_ref.py port-gnn-shards MULTI
+  python tests/_sharded_ref.py gnn-small ARCH SHAPE OVERRIDES
+  python tests/_sharded_ref.py port-gnn-small ARCH SHAPE OVERRIDES
+  python tests/_sharded_ref.py gloo-gnn CELLS
 
 ``shards``: on N host devices, each cell's in_shardings on both production
 meshes as (global shape, shard shape) of every input leaf, in the
@@ -18,6 +23,17 @@ the output of a reduce-scatter of the same tensors).  The ``port-*``
 commands print the port's counterparts from a fake process group of as
 many ranks (``repro_torch`` only; no JAX in that process).  Each prints
 one JSON object as its last line.
+
+The ``gnn-*`` commands do the same for the GNN cells: ``gnn-small`` and
+``port-gnn-small`` take a GNN arch's SMOKE config with OVERRIDES (JSON;
+the reference's scans unrolled, so that XLA's text holds every layer's
+and chunk's ops) at one of its shapes on the (data 2, model 4) mesh, the
+port counting the argument bytes of the inputs its program reads, as
+XLA's do.  ``gloo-gnn`` runs each cell of CELLS (JSON [[arch, shape,
+overrides], ...]) as the port's SMOKE training step on a real 4-rank
+gloo group of CPU processes, a (data 2, model 2) ``DeviceMesh``, and
+prints its loss and its gradients gathered whole beside the unsharded
+step's on the same seed.
 
 The LM steps run in float32 on both sides: XLA:CPU runs a bf16 step's
 collectives in f32 (every one of the bf16 SMOKE step's), where the port
@@ -47,12 +63,18 @@ def _smoke_overrides(module) -> dict:
             if f.name != "name"}
 
 
-def _cells(family_of):
+#: The GNN archs' config modules.
+GNN_MODULES = {"graphsage-reddit": "graphsage_reddit",
+               "gatedgcn": "gatedgcn_cfg", "dimenet": "dimenet_cfg",
+               "equiformer-v2": "equiformer_v2_cfg"}
+
+
+def _cells(family_of, families=("lm", "recsys")):
     return [(a, s) for a, s, _ in family_of.all_cells(include_skipped=False)
-            if family_of.get(a).family in ("lm", "recsys")]
+            if family_of.get(a).family in families]
 
 
-def ref_shards(n_devices: int) -> dict:
+def ref_shards(n_devices: int, families=("lm", "recsys")) -> dict:
     os.environ["XLA_FLAGS"] = (
         f"--xla_force_host_platform_device_count={n_devices}")
     import jax
@@ -66,7 +88,7 @@ def ref_shards(n_devices: int) -> dict:
         mesh = make_production_mesh(multi_pod=kind == "multi")
         MC.set_hint_mesh(mesh)
         fsdp = base.fsdp_axes_for(mesh)
-        for arch_id, shape in _cells(registry):
+        for arch_id, shape in _cells(registry, families):
             built = registry.get(arch_id).build(shape, mesh, fsdp)
             shardings = jax.tree.leaves(built.in_shardings)
             leaves = jax.tree.leaves(built.abstract_inputs)
@@ -79,7 +101,7 @@ def ref_shards(n_devices: int) -> dict:
     return out
 
 
-def port_shards(multi: bool) -> dict:
+def port_shards(multi: bool, families=("lm", "recsys")) -> dict:
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import registry
@@ -89,10 +111,11 @@ def port_shards(multi: bool) -> dict:
     mesh = make_production_mesh(multi_pod=multi)
     kind = "multi" if multi else "single"
     out = {}
-    for arch_id, shape in _cells(registry):
+    for arch_id, shape in _cells(registry, families):
         inputs = registry.get(arch_id).build(shape).make_inputs(
             "meta", 0, mesh)
-        inputs = [{k: v for k, v in x.items() if k != "host"}
+        inputs = [{k: v for k, v in x.items()
+                   if k not in ("host", "host_whole")}
                   if isinstance(x, dict) and "host" in x else x
                   for x in inputs]
         out[f"{arch_id}/{shape}/{kind}"] = [
@@ -191,12 +214,139 @@ def port_small(mesh_shape, axes, step: str) -> dict:
                 collectives=rec["collectives"])
 
 
+def _gnn_smoke(package: str, arch: str, overrides: dict) -> dict:
+    module = importlib.import_module(f"{package}.configs.{GNN_MODULES[arch]}")
+    return dict(_smoke_overrides(module), **overrides)
+
+
+def ref_gnn_small(arch: str, shape: str, overrides: dict) -> dict:
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import jax
+    import numpy as np
+
+    from repro.analysis import hlo
+    from repro.configs import base, registry
+    from repro.models import common as MC
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _xla_cost import split
+
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:8]).reshape(2, 4),
+                             ("data", "model"))
+    MC.set_hint_mesh(mesh)
+    ov = _gnn_smoke("repro", arch, dict(overrides, probe_unroll=True))
+    built = registry.get(arch).build(shape, mesh, base.fsdp_axes_for(mesh),
+                                     ov)
+    compiled = jax.jit(built.fn, in_shardings=built.in_shardings,
+                       out_shardings=built.out_shardings).lower(
+        *built.abstract_inputs).compile()
+    text = re.sub(r"/\*index=\d+\*/", "", compiled.as_text())
+    classes, _ = split(text)
+    return dict(argument_bytes=compiled.memory_analysis()
+                .argument_size_in_bytes,
+                matmul=classes["matmul"],
+                collectives=hlo.collective_bytes(text),
+                all_reduce_shard_bytes=sum(
+                    hlo._shape_bytes(shape) / _group_size(line, 8)
+                    for shape, line in _ops(text, "all-reduce")))
+
+
+def port_gnn_small(arch: str, shape: str, overrides: dict) -> dict:
+    import torch
+
+    from repro_torch.analysis import count
+    from repro_torch.configs import registry
+    from repro_torch.launch.dryrun import sharded_scope
+    from repro_torch.launch.mesh import make_fake_mesh
+
+    torch.set_num_threads(1)
+    mesh = make_fake_mesh((2, 4), ("data", "model"))
+    built = registry.get(arch).build(
+        shape, _gnn_smoke("repro_torch", arch, overrides))
+    with sharded_scope(mesh):
+        _, rec = count.measure(built.fn, built.make_inputs("meta", 0, mesh),
+                               "meta", read_only=True)
+    _, whole = count.measure(built.fn, built.make_inputs("meta", 0), "meta",
+                             read_only=True)
+    return dict(argument_bytes=rec["memory"]["argument_bytes"],
+                whole_argument_bytes=whole["memory"]["argument_bytes"],
+                matmul=rec["flops_by_class"]["matmul"],
+                whole_matmul=whole["flops_by_class"]["matmul"],
+                collectives=rec["collectives"])
+
+
+def _gloo_rank(rank: int, world: int, init: str, cells, out: str) -> None:
+    """One rank of ``gloo-gnn``: each cell's sharded step on the (data 2,
+    model 2) mesh and, on rank 0, the unsharded step beside it."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.dryrun import sharded_scope
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import loss_and_grads
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    res = {}
+    for arch, shape, overrides in cells:
+        module = importlib.import_module(
+            f"repro_torch.configs.{GNN_MODULES[arch]}").module
+        built = registry.get(arch).build(
+            shape, _gnn_smoke("repro_torch", arch, overrides))
+        kw = dict(model_cls=module.MODEL, loss_fn=module.loss_fn)
+        params, _, batch = built.make_inputs("cpu", 0, mesh)
+        with sharded_scope(mesh):
+            loss, grads = loss_and_grads(params, batch, built.cfg, **kw)
+            whole = [g.full_tensor() if isinstance(g, DTensor) else g
+                     for g in opt.leaves(grads)]
+            if isinstance(loss, DTensor):
+                loss = loss.full_tensor()
+        if rank == 0:
+            params, _, batch = built.make_inputs("cpu", 0)
+            loss0, grads0 = loss_and_grads(params, batch, built.cfg, **kw)
+            res[arch] = dict(loss=float(loss), loss0=float(loss0),
+                             grads=[g.tolist() for g in whole],
+                             grads0=[g.tolist() for g in opt.leaves(grads0)])
+    if rank == 0:
+        with open(out, "w") as fh:
+            json.dump(res, fh)
+    dist.destroy_process_group()
+
+
+def gloo_gnn(cells) -> dict:
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out.json")
+        mp.spawn(_gloo_rank, nprocs=4, args=(
+            4, "file://" + os.path.join(tmp, "rendezvous"), cells, out))
+        with open(out) as fh:
+            return json.load(fh)
+
+
 if __name__ == "__main__":
     cmd, *args = sys.argv[1:]
     if cmd == "shards":
         res = ref_shards(int(args[0]))
     elif cmd == "port-shards":
         res = port_shards(args[0] == "multi")
+    elif cmd == "gnn-shards":
+        res = ref_shards(int(args[0]), ("gnn",))
+    elif cmd == "port-gnn-shards":
+        res = port_shards(args[0] == "multi", ("gnn",))
+    elif cmd == "gnn-small":
+        res = ref_gnn_small(args[0], args[1], json.loads(args[2]))
+    elif cmd == "port-gnn-small":
+        res = port_gnn_small(args[0], args[1], json.loads(args[2]))
+    elif cmd == "gloo-gnn":
+        res = gloo_gnn(json.loads(args[0]))
     elif cmd == "small":
         res = ref_small(json.loads(args[0]), json.loads(args[1]), args[2])
     else:
